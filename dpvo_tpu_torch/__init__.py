@@ -1,0 +1,18 @@
+"""dpvo_tpu_torch — the PyTorch/CUDA port of dpvo_tpu for NVIDIA Hopper.
+
+A second package beside the JAX one (``dpvo_tpu/``, the reference it is
+tested against); it imports neither JAX nor anything of ``dpvo_tpu``.
+Plain tensor code is PyTorch; each TPU (Pallas) kernel on the ported
+path is a CUDA C++ kernel written for ``sm_90a`` (``csrc/``, built at
+first use by ``kernels.py``), with a plain PyTorch version beside it
+that runs for CPU tensors.
+
+Layers (mirroring ``dpvo_tpu``):
+  lie/      SE(3)/SO(3)                 geom/     projective ops
+  ops/      patchify + correlation      models/   encoders + update operator
+  ba/       sliding-window Schur BA     runtime/  VO state machine (DPVO)
+  utils/    synthetic scenes
+"""
+
+from dpvo_tpu_torch.config import Config, load_config  # noqa: F401
+from dpvo_tpu_torch.runtime.dpvo import DPVO  # noqa: F401

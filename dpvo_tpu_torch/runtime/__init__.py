@@ -1,0 +1,1 @@
+"""See the package docstring of dpvo_tpu_torch."""

@@ -1,0 +1,217 @@
+"""Device step functions of the VO runtime — port of
+``dpvo_tpu/runtime/steps.py``.
+
+PyTorch runs eagerly, so the JAX package's fused per-frame program, its
+capacity buckets and its packed uint8 frame payload have no counterpart:
+the host orchestrator (``runtime/dpvo.py``) calls these steps in order
+on the live edge set. The steps update ``VOState`` buffers in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from dpvo_tpu_torch.ba import solver as ba_solver
+from dpvo_tpu_torch.config import Config
+from dpvo_tpu_torch.geom import projective as pops
+from dpvo_tpu_torch.lie import se3
+from dpvo_tpu_torch.ops.corr import avg_pool2d_nhwc
+from dpvo_tpu_torch.ops.corr_cuda import corr_features
+from dpvo_tpu_torch.runtime.state import VOState
+from dpvo_tpu_torch.runtime.topology import EdgeSet
+
+PAIR_MAX = 1024  # distinct (ii, jj) pairs in the active window (SoftAgg size / 2)
+
+_EDGE_INDEX = ("ii", "jj", "kk", "kk_seg", "ij_seg", "ix", "jx", "dense2patch")
+_KERNEL_INDEX = ("ii1", "jj1", "kd", "kd_order")  # read by the CUDA kernels as int32
+
+
+def edge_tensors(es: EdgeSet, device) -> Dict[str, torch.Tensor]:
+    """The EdgeSet's arrays as device tensors (the kernels' indices int32,
+    the others int64)."""
+    out = {k: torch.as_tensor(np.asarray(getattr(es, k), np.int64), device=device)
+           for k in _EDGE_INDEX}
+    for k in _KERNEL_INDEX:
+        out[k] = torch.as_tensor(np.asarray(getattr(es, k), np.int32), device=device)
+    for k in ("valid", "mask_ix", "mask_jx"):
+        out[k] = torch.as_tensor(getattr(es, k), device=device)
+    out["n_depths"] = es.n_depths
+    out["count"] = es.count
+    return out
+
+
+def median(x):
+    """Median that averages the two middle values of an even-length
+    input (``jnp.median``; ``torch.median`` returns the lower one)."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.shape[0]
+    if n % 2:
+        return s[n // 2]
+    return (s[n // 2 - 1] + s[n // 2]) / 2
+
+
+class StepFunctions:
+    def __init__(self, cfg: Config, nets, device):
+        self.cfg = cfg
+        self.nets = nets
+        self.device = device
+        self.fdt = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
+        self.pmem = cfg.MAX_EDGE_AGE if cfg.LOOP_CLOSURE else cfg.PMEM
+
+    # ---------------- frame ingestion ----------------
+
+    def _patchify(self, image_u8, centroids):
+        """image_u8 [H,W,3] uint8, centroids [M,2] -> (fmap [h,w,fdim],
+        gmap [M,fdim,P,P], imap [M,dim], patches [M,3,P,P]). Patch colours
+        are left out until the export path is ported."""
+        img = 2.0 * (image_u8.to(torch.float32) / 255.0) - 0.5
+        img = img[None].to(self.fdt)
+        fmap, gmap, imap, patches, _ = self.nets.patchifier(img, centroids[None])
+        return fmap[0].to(self.fdt), gmap.to(self.fdt), imap.to(self.fdt), patches
+
+    def _ingest(self, state: VOState, n: int, fmap, gmap_p, imap_p, patches, intrinsics,
+                motion_fac: float, is_initialized: bool, do_motion: bool, depth_init):
+        """Write one frame into row n of the buffers, with the
+        damped-linear motion model and the depth init (random before
+        initialization, else the median of the last three frames)."""
+        cfg = self.cfg
+        M = cfg.PATCHES_PER_FRAME
+        state.intrinsics[n] = torch.as_tensor(intrinsics, dtype=torch.float32,
+                                              device=self.device) / cfg.RES
+
+        P1 = state.poses[max(n - 1, 0)]
+        P2 = state.poses[max(n - 2, 0)]
+        if do_motion:
+            xi = cfg.MOTION_DAMPING * motion_fac * se3.log(se3.mul(P1, se3.inv(P2)))
+            state.poses[n] = se3.mul(se3.exp(xi), P1)
+        else:
+            state.poses[n] = P1
+
+        if is_initialized:
+            lo = max(n - 3, 0) * M
+            depth = median(state.dvec[lo:lo + 3 * M]).expand(M)
+        else:
+            depth = depth_init.to(device=self.device, dtype=torch.float32)
+        patches = patches.clone()
+        patches[:, 2] = depth[:, None, None]
+        state.patches[n * M:(n + 1) * M] = patches
+        state.dvec[n * M:(n + 1) * M] = depth
+
+        slot = (n % self.pmem) * M
+        state.imap[slot:slot + M] = imap_p
+        state.gmap[slot:slot + M] = gmap_p
+        state.fmap1[n % cfg.MEM] = fmap
+        state.fmap2[n % cfg.MEM] = avg_pool2d_nhwc(fmap, 4)
+
+    def _zero_edges(self, state: VOState, start: int, count: int):
+        """Zero the hidden state of freshly appended edges, within the
+        clamped window of min(E_MAX, M*2*PATCH_LIFETIME) rows from
+        ``start`` (the caller chunks larger appends by that span)."""
+        cfg = self.cfg
+        span = min(cfg.E_MAX, cfg.PATCHES_PER_FRAME * 2 * cfg.PATCH_LIFETIME)
+        s0 = min(max(start, 0), cfg.E_MAX - span)
+        lo, hi = max(start, s0), min(start + count, s0 + span)
+        if hi > lo:
+            state.net[lo:hi] = 0
+
+    # ---------------- the hot loop ----------------
+
+    def _edge_forward(self, state: VOState, es: Dict[str, torch.Tensor], net=None):
+        """reproject -> correlate -> update operator."""
+        cfg = self.cfg
+        E = es["ii"].shape[0]
+        if net is None:
+            net = state.net[:E]
+        coords = pops.transform(state.poses, state.patches, state.intrinsics, es["ii"],
+                                es["jj"], es["kk"], depth=state.dvec)
+        corr = corr_features(state.gmap, state.fmap1, state.fmap2,
+                             coords.to(torch.float32).contiguous(), es["ii1"], es["jj1"],
+                             es["valid"], radius=cfg.CORR_RADIUS)
+        corr = corr.reshape(E, -1).to(self.fdt)
+        ctx = state.imap[es["ii1"]]
+        net, delta, weight = self.nets.update(
+            net, ctx, corr, es["ix"], es["jx"], es["mask_ix"], es["mask_jx"], es["kk_seg"],
+            es["ij_seg"], es["valid"], num_segments=cfg.M_OPT_MAX,
+            num_ij_segments=2 * PAIR_MAX)
+        c = cfg.P // 2
+        target = coords[:, c, c, :].to(torch.float32) + delta
+        return net, target, weight, delta
+
+    def _ba_bounds(self, state: VOState):
+        """Image bounds +- BA_BORDER, from frame 0's intrinsics (device side)."""
+        cx, cy = state.intrinsics[0, 2], state.intrinsics[0, 3]
+        b = self.cfg.BA_BORDER
+        return torch.stack([torch.full_like(cx, -b), torch.full_like(cy, -b), 2 * cx + b, 2 * cy + b])
+
+    def _update(self, state: VOState, es: Dict[str, torch.Tensor], t0: int, nfree: int):
+        """One tracking round: update operator + sliding-window BA."""
+        cfg = self.cfg
+        E = es["ii"].shape[0]
+        net, target, weight, _ = self._edge_forward(state, es)
+        state.net[:E] = net
+        state.target[:E] = target
+        state.weight[:E] = weight
+
+        c = cfg.P // 2
+        nd = es["n_depths"]
+        d2p = es["dense2patch"][:nd]
+        ctr = torch.zeros((cfg.M_OPT_MAX, 3), dtype=torch.float32, device=self.device)
+        ctr[:nd, :2] = state.patches[d2p, :2, c, c]
+        ctr[:nd, 2] = state.dvec[d2p]
+        poses, depths = ba_solver.ba(
+            state.poses, ctr, state.intrinsics, target, weight, es["valid"], es["ii"], es["jj"],
+            es["kd"], t0, nfree, self._ba_bounds(state), cfg.BA_LMBDA, W=cfg.W_OPT_MAX,
+            Md=cfg.M_OPT_MAX, iterations=cfg.BA_ITERS, ep=cfg.BA_EP, lm=cfg.BA_LM,
+            res_clip=cfg.BA_RESIDUAL_CLIP, clamp_mode="runtime", kd_order=es["kd_order"])
+        state.poses.copy_(poses)
+        state.dvec[d2p] = depths[:nd]
+
+    def _probe(self, state: VOState, es: Dict[str, torch.Tensor]):
+        """Motion probe: median |delta| over the probe edges with zero
+        hidden state, no BA (the upper middle for an even count, as the
+        JAX step takes it)."""
+        E = es["ii"].shape[0]
+        zero_net = torch.zeros((E, self.cfg.DIM), dtype=self.fdt, device=self.device)
+        _, _, _, delta = self._edge_forward(state, es, net=zero_net)
+        mag = torch.linalg.norm(delta, dim=-1)
+        mag = torch.where(es["valid"], mag, torch.full_like(mag, 1e9))
+        k = es["count"]
+        return torch.sort(mag).values[k // 2]
+
+    def _flowmag_pair(self, state: VOState, ii, jj, kk, beta: float):
+        """Mean flow magnitude over the given edges."""
+        mag, _ = pops.flow_mag(state.poses, state.patches, state.intrinsics, ii, jj, kk,
+                               beta=beta, depth=state.dvec)
+        return mag.mean(dim=(1, 2)).sum() / max(ii.shape[0], 1)
+
+    # ---------------- topology maintenance ----------------
+
+    def _compact_edges(self, state: VOState, keep: torch.Tensor):
+        """Move the kept edges' payloads to the front, in order."""
+        n = keep.shape[0]
+        for buf in (state.net, state.target, state.weight):
+            buf[:n] = buf[keep]
+
+    def _store_inactive(self, state: VOState, src: torch.Tensor, dst: torch.Tensor):
+        """Copy removed edges' targets/weights into the inactive ring."""
+        state.target_inac[dst] = state.target[src]
+        state.weight_inac[dst] = state.weight[src]
+
+    def _keyframe_shift(self, state: VOState, k: int, n_after: int):
+        """Delete keyframe k: frame-indexed rows k..n_after-1 take rows
+        k+1..n_after; circular slots f % period take (f+1) % period for
+        f = k..n_after (a gather from the buffer before the move)."""
+        M = self.cfg.PATCHES_PER_FRAME
+        for buf, rows in ((state.poses, 1), (state.intrinsics, 1), (state.patches, M),
+                          (state.dvec, M)):
+            buf[k * rows:n_after * rows] = buf[(k + 1) * rows:(n_after + 1) * rows].clone()
+        f = np.arange(k, n_after + 1)
+        for buf, period, rows in ((state.imap, self.pmem, M), (state.gmap, self.pmem, M),
+                                  (state.fmap1, self.cfg.MEM, 1), (state.fmap2, self.cfg.MEM, 1)):
+            dst = ((f % period)[:, None] * rows + np.arange(rows)[None, :]).reshape(-1)
+            src = (((f + 1) % period)[:, None] * rows + np.arange(rows)[None, :]).reshape(-1)
+            buf[torch.as_tensor(dst, device=self.device)] = \
+                buf[torch.as_tensor(src, device=self.device)]
