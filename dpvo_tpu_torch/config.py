@@ -6,10 +6,13 @@ dataclass, its ``DEFAULT``/``FAST`` profiles, ``load_config`` and the
 JAX package. The capacity knobs (``E_MAX``, ``W_OPT_MAX``, ...) keep
 their meaning: the port allocates its buffers with them and sizes the
 pose system and the depth reduction by them, so both packages solve the
-same padded problems. The TPU-only pipelining knobs (``PIPELINE_DEPTH``,
-``E_BUCKETS``, ``CORR_IMPL``) are accepted so the same YAML files load,
-and are ignored: the port applies the keyframe decision inline and runs
-on the live edge count.
+same padded problems. ``CORR_IMPL`` selects the correlation variant as
+in the JAX tracker (``runtime/steps.py:StepFunctions``): ``auto`` and
+``xla`` the exact windows, ``pallas``, ``pallas_sw``, ``pallas_dma`` and
+``pallas_fused`` the functions of the JAX kernels of those names. The
+TPU-only pipelining knobs (``PIPELINE_DEPTH``, ``E_BUCKETS``) are
+accepted so the same YAML files load, and are ignored: the port applies
+the keyframe decision inline and runs on the live edge count.
 """
 
 from __future__ import annotations
@@ -84,8 +87,10 @@ class Config:
     BA_ITERS: int = 2
     GBA_ITERS: int = 2
 
-    # ---- accepted for YAML compatibility, ignored by the port ----
+    # ---- correlation variant: auto | xla | pallas | pallas_sw | pallas_dma | pallas_fused
+    # (auto = xla, exact windows; see runtime/steps.py:CORR_IMPLS) ----
     CORR_IMPL: str = "auto"
+    # ---- accepted for YAML compatibility, ignored by the port ----
     E_BUCKETS: str = "auto"
 
     @property

@@ -1,14 +1,21 @@
-// Two-level sparse patch correlation, exact per-pixel windows, for Hopper.
+// Two-level sparse patch correlation for Hopper: exact per-pixel windows
+// (CORR_IMPL auto / xla) or v4's clamped ones (CORR_IMPL pallas_fused).
 //
 // Replaces the TPU kernel dpvo_tpu/ops/corr_pallas.py:_make_kernel_v4
 // (built at :714, launched by _corr_features_v4 at :949, entry point
-// corr_features_pallas_fused). Unlike v4 it computes the exact
+// corr_features_pallas_fused). With clamp == 0 it computes the exact
 // reference altcorr semantics: every patch pixel's (2r+2)^2 window
 // around its own reprojected position, zero outside the image, both
 // pyramid levels (level 2 at coords / 4), then the 2x2 bilinear
-// reduction to (2r+1)^2. It equals v4 wherever v4's +-3 px window clamp
-// does not bite, and dpvo_tpu_torch/ops/corr.py:corr_features_plain
-// everywhere (up to f32 summation order before the bf16 store).
+// reduction to (2r+1)^2. With clamp == 1 it takes v4's windows
+// (corr_pallas.py:_level_coeffs): each pixel's window corner clamped into
+// the 16 x 24 superwindow anchored 3 px before the centre pixel's corner
+// (x aligned down to 8), and pixels whose own window cannot touch the
+// image masked to zero; the integer arithmetic is JAX's (saturating
+// float-to-int, wrapping int32). Either way it equals
+// dpvo_tpu_torch/ops/corr.py:corr_features_plain (same clamp flag) up to
+// f32 summation order before the bf16 store; v4 itself also rounds its
+// bilinear coefficients to bf16.
 //
 // Output: the canonical layout out[e, p, l*64 + u*8 + v] (bf16), p the
 // patch pixel, l the level, (u, v) = (dy, dx) with the last row and
@@ -34,7 +41,7 @@
 //
 // Later work (not needed for correctness): stage the union window of the
 // 9 pixels in shared memory once, process edges in target-frame order
-// (corr_sort_order) for L2 reuse, and use tensor cores for the dots.
+// for L2 reuse, and use tensor cores for the dots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +53,7 @@ constexpr int kRadius = 3;
 constexpr int kD = 2 * kRadius + 2;  // 8
 constexpr int kP2 = 9;               // 3x3 patch pixels
 constexpr int kOutW = 2 * kD * kD;   // 128 canonical values per pixel
+constexpr int kRS3 = 16, kCS3 = 24;  // v4's superwindow (clamp mode)
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
@@ -69,18 +77,24 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
+// int32 arithmetic that wraps as JAX's does (signed overflow is undefined in C++)
+__device__ __forceinline__ int wrap_add(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 corr_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
             const T* __restrict__ fmap2, const float* __restrict__ coords,
             const int* __restrict__ ii1, const int* __restrict__ jj1,
-            const uint8_t* __restrict__ valid, __nv_bfloat16* __restrict__ out,
-            int Np, int mem, int C, int H1, int W1, int H2, int W2) {
+            const uint8_t* __restrict__ valid, __nv_bfloat16* __restrict__ out, int Np,
+            int mem, int C, int H1, int W1, int H2, int W2, int clamp) {
   extern __shared__ float smem[];
   float* f1 = smem;              // [C][9] patch features (gmap row layout)
   float* raw = f1 + C * kP2;     // [2][9][8][8] raw window dots
-  __shared__ int base[2][kP2][2];     // window corner (x, y) per level/pixel
+  __shared__ int corner[2][kP2][2];   // floor(coords) - r (x, y) per level/pixel
+  __shared__ int base[2][kP2][2];     // window corner (x, y) the dots use
   __shared__ float frac[2][kP2][2];   // fractional (x, y)
+  __shared__ float keep[2][kP2];      // pixel mask (clamp mode; else 1)
 
   const int e = blockIdx.x;
   const int tid = threadIdx.x;
@@ -103,10 +117,29 @@ corr_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
       y = y / 4.0f;
     }
     const float x0 = floorf(x), y0 = floorf(y);
-    base[lvl][p][0] = (int)x0 - kRadius;
-    base[lvl][p][1] = (int)y0 - kRadius;
+    // float-to-int saturates and maps NaN to 0 on the card, as in JAX
+    corner[lvl][p][0] = wrap_add(__float2int_rd(x), -kRadius);
+    corner[lvl][p][1] = wrap_add(__float2int_rd(y), -kRadius);
     frac[lvl][p][0] = x - x0;
     frac[lvl][p][1] = y - y0;
+  }
+  __syncthreads();
+  if (tid < 2 * kP2) {
+    const int lvl = tid / kP2, p = tid % kP2;
+    const int H = lvl ? H2 : H1, W = lvl ? W2 : W1;
+    const int sx = corner[lvl][p][0], sy = corner[lvl][p][1];
+    if (clamp) {
+      const int Wa = (W + 7) / 8 * 8;
+      const int syc = clampi(wrap_add(corner[lvl][kP2 / 2][1], -3), -16, H);
+      const int sxc = (clampi(wrap_add(corner[lvl][kP2 / 2][0], -3), -16, Wa) + 16) / 8 * 8 - 16;
+      base[lvl][p][0] = sxc + clampi(wrap_add(sx, -sxc), 0, kCS3 - 9);
+      base[lvl][p][1] = syc + clampi(wrap_add(sy, -syc), 0, kRS3 - 9);
+      keep[lvl][p] = (sy >= -kD && sy <= H && sx >= -kD && sx <= W) ? 1.f : 0.f;
+    } else {
+      base[lvl][p][0] = sx;
+      base[lvl][p][1] = sy;
+      keep[lvl][p] = 1.f;
+    }
   }
   __syncthreads();
 
@@ -119,8 +152,8 @@ corr_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
     const int p = (task / kD) % kP2;
     const int dy = task % kD;
     const int H = lvl ? H2 : H1, W = lvl ? W2 : W1;
-    const int y = base[lvl][p][1] + dy;
-    const int x = base[lvl][p][0] + gx;
+    const int y = wrap_add(base[lvl][p][1], dy);
+    const int x = wrap_add(base[lvl][p][0], gx);
     float acc = 0.f;
     if (y >= 0 && y < H && x >= 0 && x < W) {
       const T* src = (lvl ? fmap2 : fmap1) + (((size_t)jj * H + y) * W + x) * C;
@@ -146,6 +179,7 @@ corr_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
       const float* c = raw + (lvl * kP2 + p) * kD * kD;
       val = (1.f - fy) * (1.f - fx) * c[u * kD + v] + (1.f - fy) * fx * c[u * kD + v + 1] +
             fy * (1.f - fx) * c[(u + 1) * kD + v] + fy * fx * c[(u + 1) * kD + v + 1];
+      val *= keep[lvl][p];
     }
     o[i] = __float2bfloat16_rn(val);
   }
@@ -154,7 +188,7 @@ corr_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
 template <typename T>
 int launch(const void* gmap, const void* fmap1, const void* fmap2, const void* coords,
            const void* ii1, const void* jj1, const void* valid, void* out, int E, int Np,
-           int mem, int C, int H1, int W1, int H2, int W2, cudaStream_t stream) {
+           int mem, int C, int H1, int W1, int H2, int W2, int clamp, cudaStream_t stream) {
   const size_t shmem = (size_t)(C * kP2 + 2 * kP2 * kD * kD) * sizeof(float);
   if (shmem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(corr_kernel<T>,
@@ -165,7 +199,7 @@ int launch(const void* gmap, const void* fmap1, const void* fmap2, const void* c
     corr_kernel<T><<<E, kThreads, shmem, stream>>>(
         (const T*)gmap, (const T*)fmap1, (const T*)fmap2, (const float*)coords,
         (const int*)ii1, (const int*)jj1, (const uint8_t*)valid, (__nv_bfloat16*)out, Np, mem, C,
-        H1, W1, H2, W2);
+        H1, W1, H2, W2, clamp);
   }
   return (int)cudaGetLastError();
 }
@@ -175,11 +209,12 @@ int launch(const void* gmap, const void* fmap1, const void* fmap2, const void* c
 extern "C" int dpvo_corr_features(const void* gmap, const void* fmap1, const void* fmap2,
                                   const void* coords, const void* ii1, const void* jj1,
                                   const void* valid, void* out, int E, int Np, int mem, int C,
-                                  int H1, int W1, int H2, int W2, int is_bf16, void* stream) {
+                                  int H1, int W1, int H2, int W2, int is_bf16, int clamp,
+                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return launch<__nv_bfloat16>(gmap, fmap1, fmap2, coords, ii1, jj1, valid, out, E, Np, mem, C,
-                                 H1, W1, H2, W2, s);
+                                 H1, W1, H2, W2, clamp, s);
   return launch<float>(gmap, fmap1, fmap2, coords, ii1, jj1, valid, out, E, Np, mem, C, H1, W1,
-                       H2, W2, s);
+                       H2, W2, clamp, s);
 }

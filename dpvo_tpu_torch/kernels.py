@@ -31,15 +31,22 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"corr": 0, "segsum": 0, "spd_solve": 0}
+LAUNCHES = {"corr": 0, "segsum": 0, "spd_solve": 0, "corr_window": 0, "corr_sw": 0,
+            "corr_v3": 0, "corr_v3_epi": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each entry point: every one returns cudaGetLastError()
 _SIGNATURES = {
     # gmap, fmap1, fmap2, coords, ii1, jj1, valid, out,
-    # E, Np, mem, C, H1, W1, H2, W2, is_bf16, stream
-    "dpvo_corr_features": [_VP] * 8 + [_I] * 9 + [_VP],
+    # E, Np, mem, C, H1, W1, H2, W2, is_bf16, clamp, stream
+    "dpvo_corr_features": [_VP] * 8 + [_I] * 10 + [_VP],
+    # f1, fmap, jj, valid, corner y, corner x, out, E, mem, H, W, C, stream
+    "dpvo_corr_window": [_VP] * 7 + [_I] * 5 + [_VP],
+    "dpvo_corr_superwindow_sw": [_VP] * 7 + [_I] * 5 + [_VP],
+    "dpvo_corr_superwindow_v3": [_VP] * 7 + [_I] * 5 + [_VP],
+    # s, dy, dxw, dyf, dxf, vf, out, E, stream
+    "dpvo_corr_epilogue_v3": [_VP] * 7 + [_I, _VP],
     # payload, kd, order, out, E, K, Md, stream
     "dpvo_segment_sum": [_VP] * 4 + [_I] * 3 + [_VP],
     # S, y, x, n, stream

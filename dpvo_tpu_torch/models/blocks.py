@@ -11,6 +11,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dpvo_tpu_torch.ba.segsum import segment_sum
+
 GRAD_CLIP = 0.01
 
 
@@ -62,20 +64,38 @@ class GatedResidual(nn.Module):
         return x + torch.sigmoid(self.Dense_0(x)) * self.MLP2_0(x)
 
 
+def grouped_sum(x, seg, num_segments: int, order=None):
+    """out[s] = sum of the rows x[e] with seg[e] == s, s < num_segments, in
+    f32 (rows of a larger seg are dropped). On the card through the sorted
+    segment-sum kernel (``ba/segsum.py``): a fixed summation order, so the
+    card gives the same bits on every run, where ``index_add_`` sums with
+    float atomics in an order that varies. On the CPU ``index_add_`` adds
+    the rows one after another, in O(E * K), and is as reproducible.
+    order: a stable argsort of seg for the kernel, computed here when not
+    given."""
+    x = x.to(torch.float32)
+    if x.device.type == "cpu":
+        out = torch.zeros((num_segments + 1, x.shape[1]), dtype=torch.float32)
+        return out.index_add_(0, seg.long().clamp(max=num_segments), x)[:num_segments]
+    if order is None:
+        order = torch.argsort(seg, stable=True).to(seg.dtype)
+    return segment_sum(x.contiguous(), seg, order, num_segments)
+
+
 def segment_softmax(x, seg, num_segments: int, valid=None):
     """Softmax over groups of rows. x [E, C]; seg [E] in [0, num_segments);
     rows with valid=False contribute nothing and receive weight 0."""
     if valid is not None:
         seg = torch.where(valid, seg, torch.full_like(seg, num_segments))
     ns = num_segments + 1
-    idx = seg[:, None].expand_as(x)
+    idx = seg[:, None].expand_as(x).long()
     m = torch.full((ns, x.shape[1]), float("-inf"), dtype=x.dtype, device=x.device)
-    m = m.scatter_reduce(0, idx, x, reduce="amax", include_self=True)
+    m = m.scatter_reduce(0, idx, x, reduce="amax", include_self=True)  # order-free: max
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(x - m[seg])
     if valid is not None:
         e = e * valid[:, None].to(e.dtype)
-    den = torch.zeros((ns, x.shape[1]), dtype=e.dtype, device=x.device).index_add_(0, seg, e)
+    den = grouped_sum(e, seg, ns).to(e.dtype)
     return e / torch.clamp(den[seg], min=1e-9)
 
 
@@ -86,11 +106,13 @@ class SoftAgg(nn.Module):
         y = scatter_sum(f(x) * w, groups)
         out = h(y)[groups]
 
-    At ``num_segments >= 256`` (the runtime's case) the softmax is
-    shifted by the global per-channel max over valid rows and both
-    grouped sums ride one f32-accumulated reduction (``index_add_``) of
-    a payload rounded to the module dtype, as the JAX one-hot matmul
-    does; below that, ``segment_softmax``.
+    At ``num_segments >= 256`` (the default configuration's case) the
+    softmax is shifted by the global per-channel max over valid rows and
+    both grouped sums ride one f32-accumulated reduction of a payload
+    rounded to the module dtype, as the JAX one-hot matmul does; below
+    that (the tiny configuration's patch groups), ``segment_softmax``.
+    Every grouped sum goes through ``grouped_sum`` (the sorted segment-sum
+    kernel on the card), so the tracker is reproducible run to run.
     """
 
     def __init__(self, dim: int, matmul_threshold: int = 256):
@@ -101,7 +123,7 @@ class SoftAgg(nn.Module):
         self.Dense_1 = nn.Linear(dim, dim)
         self.Dense_2 = nn.Linear(dim, dim)
 
-    def forward(self, x, seg, num_segments: int, valid=None):
+    def forward(self, x, seg, num_segments: int, valid=None, order=None):
         fx = self.Dense_0(x)
         gx = self.Dense_1(x)
         if num_segments >= self.matmul_threshold:
@@ -113,14 +135,13 @@ class SoftAgg(nn.Module):
             e = torch.exp(g32 - m[None])
             if valid is not None:
                 e = e * valid[:, None].to(e.dtype)
+            # invalid rows carry e = 0, so they add nothing to their group
             payload = torch.cat([fx.to(torch.float32) * e, e], dim=1).to(x.dtype)
-            sums = torch.zeros((num_segments, 2 * self.dim), dtype=torch.float32,
-                               device=x.device).index_add_(0, seg, payload.to(torch.float32))
+            sums = grouped_sum(payload, seg, num_segments, order)
             y = (sums[:, : self.dim] / torch.clamp(sums[:, self.dim:], min=1e-9)).to(x.dtype)
         else:
             w = segment_softmax(gx.to(torch.float32), seg, num_segments, valid).to(x.dtype)
             seg_safe = seg if valid is None else torch.where(
                 valid, seg, torch.full_like(seg, num_segments))
-            y = torch.zeros((num_segments + 1, self.dim), dtype=x.dtype,
-                            device=x.device).index_add_(0, seg_safe, fx * w)[:num_segments]
+            y = grouped_sum(fx * w, seg_safe, num_segments).to(x.dtype)
         return self.Dense_2(y)[seg]

@@ -34,13 +34,15 @@ class Update(nn.Module):
         self.head_w = nn.Linear(D, 2)
 
     def forward(self, net, inp, corr, ix, jx, mask_ix, mask_jx, kk_seg, ij_seg, valid,
-                num_segments: int, num_ij_segments: int = 0):
+                num_segments: int, num_ij_segments: int = 0, kk_order=None, ij_order=None):
         """One round of the recurrent edge-GNN.
 
         net [E,D] hidden state; inp [E,D] context; corr [E,CORR_WIDTH]
         canonical correlation features; ix/jx [E] previous/next edge of
         the same patch (masked by mask_ix/mask_jx); kk_seg/ij_seg [E]
-        dense group ids; valid [E] edge mask.
+        dense group ids; valid [E] edge mask; kk_order/ij_order [E]
+        optional stable argsorts of kk_seg/ij_seg (the topology ships them;
+        else SoftAgg sorts on the device).
 
         Returns (net', delta [E,2] f32, weight [E,2] f32).
         """
@@ -51,8 +53,8 @@ class Update(nn.Module):
         net = net + self.c2(mask_jx[:, None].to(net.dtype) * net[jx])
 
         n_ij = num_ij_segments or num_segments
-        net = net + self.agg_kk(net, kk_seg, num_segments, valid)
-        net = net + self.agg_ij(net, ij_seg, n_ij, valid)
+        net = net + self.agg_kk(net, kk_seg, num_segments, valid, kk_order)
+        net = net + self.agg_ij(net, ij_seg, n_ij, valid, ij_order)
 
         net = self.GatedResidual_0(self.LayerNorm_2(net))
         net = self.GatedResidual_1(self.LayerNorm_3(net))

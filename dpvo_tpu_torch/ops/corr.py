@@ -14,11 +14,69 @@ with the last row and column of each D x D block zero, ``valid``-masked
 edges zero, bf16. This is the function the CUDA kernel is held to; the
 JAX package's ``corr_features_xla`` computes the same values wherever
 its 16-px region covers the window.
+
+``clamp=True`` gives the windows of the v4 TPU kernel
+(``dpvo_tpu/ops/corr_pallas.py:_level_coeffs``, ``CORR_IMPL=
+pallas_fused``): each pixel's window corner is clamped into a
+superwindow anchored 3 px before the patch centre's own corner, so a
+pixel more than +-3 px from the centre samples the nearest window that
+fits, and a pixel whose window lies wholly outside the image gives zero.
+The integer corner arithmetic (``window_corners``,
+``clamp_into_superwindow``) follows JAX's int32 semantics exactly, for the
+superwindow kernels of ``ops/corr_pallas.py`` too.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+RS3, CS3 = 16, 24  # the v3/v4 superwindow: rows, columns (8-aligned corner)
+
+
+def wrap_i32(v):
+    """Two's-complement wrap of int64 values into the int32 range: JAX's
+    int32 arithmetic wraps where int64 would not."""
+    return torch.remainder(v + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def floor_i32(x):
+    """``jnp.floor(x).astype(jnp.int32)`` as int64: saturating at the int32
+    range, NaN to 0 (a plain torch cast of such values is undefined)."""
+    f = torch.floor(x).double()
+    f = torch.where(torch.isnan(f), torch.zeros_like(f), f)
+    return f.clamp(-2.0 ** 31, 2.0 ** 31 - 1).long()
+
+
+def window_corners(cs, radius: int):
+    """Per-pixel window corners (sy, sx) = floor(coords) - radius (int64
+    holding int32 values) and the fractions (dyf, dxf) of cs [..., 2]."""
+    x, y = cs[..., 0], cs[..., 1]
+    dxf, dyf = x - torch.floor(x), y - torch.floor(y)
+    return wrap_i32(floor_i32(y) - radius), wrap_i32(floor_i32(x) - radius), dyf, dxf
+
+
+def clamp_into_superwindow(sy, sx, margin: int, ymax: int, xmax: int, H: int, W: int):
+    """An edge's superwindow corner (syc, sxc) [E]: the centre pixel's
+    window corner less ``margin``, clamped into the zero border of 16, x
+    aligned down to 8; and each pixel's window offset in it (dy, dxw) [E,
+    P2], clamped to [0, ymax] x [0, xmax] (``corr_pallas.py:328-329``,
+    ``:364-365``; ``:608-613``). sy/sx [E, P2], the map H x W."""
+    c = sy.shape[1] // 2
+    Wa = -(-W // 8) * 8
+    syc = wrap_i32(sy[:, c] - margin).clamp(-16, H)
+    sxc = torch.div(wrap_i32(sx[:, c] - margin).clamp(-16, Wa) + 16, 8,
+                    rounding_mode="floor") * 8 - 16
+    dy = wrap_i32(sy - syc[:, None]).clamp(0, ymax)
+    dxw = wrap_i32(sx - sxc[:, None]).clamp(0, xmax)
+    return syc, sxc, dy, dxw
+
+
+def pixel_mask(valid, sy, sx, H: int, W: int, D: int):
+    """1.0 where the edge is valid and the pixel's window can touch the
+    image, else 0.0 (``vp`` of ``corr_pallas.py``)."""
+    vp = valid[:, None] & (sy >= -D) & (sy <= H) & (sx >= -D) & (sx <= W)
+    return vp.to(torch.float32)
 
 
 def _window_index(coords, radius: int):
@@ -43,8 +101,21 @@ def _bilinear(win, fy, fx):
     )
 
 
-def sparse_corr(gmap, fmap, coords, ii1, jj1, radius: int = 3, chunk: int = 1024):
-    """One pyramid level of patch <-> frame correlation, exact windows.
+def clamped_windows(cs, radius: int, H: int, W: int):
+    """v4's windows for cs [E, P2, 2]: corners (y, x) [E, P2] clamped into
+    the RS3 x CS3 superwindow (``corr_pallas.py:844-850``), the fractions
+    and the mask of pixels whose own window can touch the image."""
+    D = 2 * radius + 2
+    sy, sx, dyf, dxf = window_corners(cs, radius)
+    syc, sxc, dy, dxw = clamp_into_superwindow(sy, sx, 3, RS3 - 9, CS3 - 9, H, W)
+    ok = pixel_mask(torch.ones_like(sy[:, 0], dtype=torch.bool), sy, sx, H, W, D)
+    return syc[:, None] + dy, sxc[:, None] + dxw, dyf, dxf, ok
+
+
+def sparse_corr(gmap, fmap, coords, ii1, jj1, radius: int = 3, chunk: int = 1024,
+                clamp: bool = False):
+    """One pyramid level of patch <-> frame correlation, exact windows
+    (``clamp=True``: v4's clamped windows, see the module docstring).
 
     gmap   [Np, C, P, P]   patch matching features
     fmap   [mem, H, W, C]  frame features (NHWC)
@@ -61,7 +132,11 @@ def sparse_corr(gmap, fmap, coords, ii1, jj1, radius: int = 3, chunk: int = 1024
         cs = coords[s:s + chunk].reshape(-1, P * P, 2)
         Ec = cs.shape[0]
         f1 = gmap[ii1[s:s + chunk]].reshape(Ec, C, P * P).transpose(1, 2).float()
-        x0, y0, fx, fy, offs = _window_index(cs, radius)
+        if clamp:
+            y0, x0, fy, fx, keep = clamped_windows(cs, radius, H, W)
+            offs = torch.arange(D, device=coords.device)
+        else:
+            x0, y0, fx, fy, offs = _window_index(cs, radius)
         ix = (x0[..., None, None] + offs[None, None, None, :]).expand(Ec, P * P, D, D)
         iy = (y0[..., None, None] + offs[None, None, :, None]).expand(Ec, P * P, D, D)
         ok = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
@@ -69,18 +144,20 @@ def sparse_corr(gmap, fmap, coords, ii1, jj1, radius: int = 3, chunk: int = 1024
         f2 = fflat[jj1[s:s + chunk, None, None], lin.reshape(Ec, P * P, D * D)]
         corr = torch.einsum("epc,epdc->epd", f1, f2.float()).reshape(Ec, P * P, D, D)
         corr = corr * ok.to(corr.dtype)
-        outs.append(_bilinear(corr, fy[..., None, None], fx[..., None, None]))
+        out = _bilinear(corr, fy[..., None, None], fx[..., None, None])
+        outs.append(out * keep[..., None, None] if clamp else out)
     return torch.cat(outs, 0)
 
 
-def corr_features_plain(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3):
+def corr_features_plain(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3,
+                        clamp: bool = False):
     """Both levels (fmap2 at coords / 4) in the canonical layout
     [E, P*P, 2*(2r+2)^2] bf16 (see the module docstring)."""
     E, P = coords.shape[0], coords.shape[1]
     D = 2 * radius + 2
     outs = []
     for fmap, scale in ((fmap1, 1.0), (fmap2, 4.0)):
-        c = sparse_corr(gmap, fmap, coords / scale, ii1, jj1, radius)
+        c = sparse_corr(gmap, fmap, coords / scale, ii1, jj1, radius, clamp=clamp)
         c = torch.nn.functional.pad(c, (0, 1, 0, 1))
         outs.append(c.reshape(E, P * P, D * D))
     out = torch.cat(outs, -1) * valid[:, None, None].to(torch.float32)

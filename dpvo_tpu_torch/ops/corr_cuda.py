@@ -2,41 +2,33 @@
 
 Port of the TPU correlation entry point
 ``dpvo_tpu/ops/corr_pallas.py:corr_features_pallas_fused`` (the v4
-kernel). The port computes exact per-pixel windows, the semantics of
-``ops/corr.py:corr_features_plain``, which the wrapper runs for CPU
-tensors; a CUDA tensor launches the kernel or raises.
+kernel). The kernel computes exact per-pixel windows (``CORR_IMPL`` auto
+and xla, the semantics of ``corr_features_xla``) or, with ``clamp=True``,
+v4's windows clamped within +-3 px of the patch centre's
+(``CORR_IMPL=pallas_fused``); ``ops/corr.py:corr_features_plain`` is its
+plain version, which the wrapper runs for CPU tensors; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from dpvo_tpu_torch import kernels
 from dpvo_tpu_torch.ops.corr import corr_features_plain
 
 
-def corr_sort_order(jj, n_valid: int, E_cap: int, mem: int):
-    """Host-side valid-first stable sort of edges by fmap slot jj % mem,
-    plus its inverse (copy of ``dpvo_tpu/ops/corr_pallas.py:59-77``).
-    Returns (order, inv) as int64 [E_cap]."""
-    key = np.full(E_cap, np.iinfo(np.uint16).max, np.uint16)
-    key[:n_valid] = np.asarray(jj[:n_valid]) % mem
-    order = np.argsort(key, kind="stable").astype(np.int64)
-    inv = np.empty(E_cap, np.int64)
-    inv[order] = np.arange(E_cap)
-    return order, inv
-
-
-def corr_features(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3):
+def corr_features(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3,
+                  clamp: bool = False):
     """Two-level correlation features, canonical [E, P*P, 2*(2r+2)^2] bf16.
 
     gmap [Np, C, P, P]; fmap1 [mem, H1, W1, C], fmap2 [mem, H2, W2, C]
     (NHWC, the same dtype as gmap: bf16 or f32); coords [E, P, P, 2] f32
     at level-1 scale; ii1 / jj1 [E] gmap row / fmap slot; valid [E] bool.
+    clamp: v4's clamped windows.
     """
     if coords.device.type == "cpu":
-        return corr_features_plain(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius)
+        return corr_features_plain(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius, clamp)
     E, P = coords.shape[0], coords.shape[1]
     Np, C = gmap.shape[0], gmap.shape[1]
     mem, H1, W1, _ = fmap1.shape
@@ -67,7 +59,7 @@ def corr_features(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3):
     rc = lib.dpvo_corr_features(
         gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(), coords.data_ptr(),
         ii1.data_ptr(), jj1.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        E, Np, mem, C, H1, W1, H2, W2, int(gmap.dtype == torch.bfloat16),
+        E, Np, mem, C, H1, W1, H2, W2, int(gmap.dtype == torch.bfloat16), int(clamp),
         kernels.stream_ptr(coords))
     kernels.check("corr", rc)
     kernels.LAUNCHES["corr"] += 1

@@ -20,13 +20,22 @@ from dpvo_tpu_torch.geom import projective as pops
 from dpvo_tpu_torch.lie import se3
 from dpvo_tpu_torch.ops.corr import avg_pool2d_nhwc
 from dpvo_tpu_torch.ops.corr_cuda import corr_features
+from dpvo_tpu_torch.ops.corr_pallas import (corr_features_pallas, corr_features_pallas_dma,
+                                            corr_features_pallas_sw)
 from dpvo_tpu_torch.runtime.state import VOState
 from dpvo_tpu_torch.runtime.topology import EdgeSet
 
 PAIR_MAX = 1024  # distinct (ii, jj) pairs in the active window (SoftAgg size / 2)
 
-_EDGE_INDEX = ("ii", "jj", "kk", "kk_seg", "ij_seg", "ix", "jx", "dense2patch")
-_KERNEL_INDEX = ("ii1", "jj1", "kd", "kd_order")  # read by the CUDA kernels as int32
+_EDGE_INDEX = ("ii", "jj", "kk", "ix", "jx", "dense2patch")
+# read by the CUDA kernels as int32
+_KERNEL_INDEX = ("ii1", "jj1", "kk_seg", "ij_seg", "kd", "kd_order", "ij_order")
+
+# CORR_IMPL -> the JAX tracker's correlation function of that name
+# (dpvo_tpu/runtime/steps.py:57-65, :523-528); "auto" is "xla" off the TPU
+CORR_IMPLS = ("auto", "xla", "pallas", "pallas_sw", "pallas_dma", "pallas_fused")
+_CORR_FNS = {"pallas": corr_features_pallas, "pallas_sw": corr_features_pallas_sw,
+             "pallas_dma": corr_features_pallas_dma}
 
 
 def edge_tensors(es: EdgeSet, device) -> Dict[str, torch.Tensor]:
@@ -60,6 +69,9 @@ class StepFunctions:
         self.device = device
         self.fdt = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
         self.pmem = cfg.MAX_EDGE_AGE if cfg.LOOP_CLOSURE else cfg.PMEM
+        if cfg.CORR_IMPL not in CORR_IMPLS:
+            raise ValueError(f"CORR_IMPL={cfg.CORR_IMPL!r}: expected one of {CORR_IMPLS}")
+        self.corr_impl = "xla" if cfg.CORR_IMPL == "auto" else cfg.CORR_IMPL
 
     # ---------------- frame ingestion ----------------
 
@@ -127,18 +139,30 @@ class StepFunctions:
             net = state.net[:E]
         coords = pops.transform(state.poses, state.patches, state.intrinsics, es["ii"],
                                 es["jj"], es["kk"], depth=state.dvec)
-        corr = corr_features(state.gmap, state.fmap1, state.fmap2,
-                             coords.to(torch.float32).contiguous(), es["ii1"], es["jj1"],
-                             es["valid"], radius=cfg.CORR_RADIUS)
+        corr = self._corr(state, coords.to(torch.float32).contiguous(), es)
         corr = corr.reshape(E, -1).to(self.fdt)
         ctx = state.imap[es["ii1"]]
         net, delta, weight = self.nets.update(
             net, ctx, corr, es["ix"], es["jx"], es["mask_ix"], es["mask_jx"], es["kk_seg"],
             es["ij_seg"], es["valid"], num_segments=cfg.M_OPT_MAX,
-            num_ij_segments=2 * PAIR_MAX)
+            num_ij_segments=2 * PAIR_MAX, kk_order=es["kd_order"], ij_order=es["ij_order"])
         c = cfg.P // 2
         target = coords[:, c, c, :].to(torch.float32) + delta
         return net, target, weight, delta
+
+    def _corr(self, state: VOState, coords, es: Dict[str, torch.Tensor]):
+        """Correlation features by CORR_IMPL (JAX step :523-538). The
+        pallas variants take bf16 features whatever the configuration, as
+        their JAX namesakes do. Where the JAX step ships the host's jj sort,
+        the port sorts on the device: the same order, so the same values."""
+        r = self.cfg.CORR_RADIUS
+        args = (state.gmap, state.fmap1, state.fmap2, coords, es["ii1"], es["jj1"], es["valid"])
+        if self.corr_impl == "xla":
+            return corr_features(*args, radius=r)
+        bf16 = tuple(t.to(torch.bfloat16) for t in args[:3]) + args[3:]
+        if self.corr_impl == "pallas_fused":
+            return corr_features(*bf16, radius=r, clamp=True)
+        return _CORR_FNS[self.corr_impl](*bf16, radius=r)
 
     def _ba_bounds(self, state: VOState):
         """Image bounds +- BA_BORDER, from frame 0's intrinsics (device side)."""

@@ -1,7 +1,9 @@
 """Host-side patch-graph topology manager — NumPy integer bookkeeping.
 
 A copy of ``dpvo_tpu/runtime/topology.py`` (without the global-BA edge
-set, which waits for the loop-closure port).
+set, which waits for the loop-closure port). Its edge sets also carry
+``ij_order``, the stable sort by pair that the update operator's pair
+aggregation reads.
 
 The reference mutates edge index tensors on the GPU
 (dpvo/dpvo.py:480-568 append/remove_factors, :601-693 keyframe). Under
@@ -124,6 +126,7 @@ class EdgeSet:
     mask_jx: np.ndarray
     kd: np.ndarray           # dense depth-variable index (== kk_seg)
     kd_order: np.ndarray     # stable argsort of padded kd (sorted segsum)
+    ij_order: np.ndarray     # stable argsort of padded ij_seg (SoftAgg by pair)
     dense2patch: np.ndarray  # [M_pad] patch index per depth variable
     n_depths: int
     count: int
@@ -264,6 +267,7 @@ class Topology:
         valid = np.zeros(pad, bool)
         valid[:E] = True
         kd_pad = padi(kk_seg)
+        ij_pad = padi(ij_seg)
         return EdgeSet(
             ii=padi(ii),
             jj=padi(jj),
@@ -272,13 +276,14 @@ class Topology:
             ii1=padi(kk % (self.M * self.pmem)),
             jj1=padi(jj % self.mem),
             kk_seg=padi(kk_seg),
-            ij_seg=padi(ij_seg),
+            ij_seg=ij_pad,
             ix=padi(ix),
             jx=padi(jx),
             mask_ix=np.pad(hp, (0, pad - E)),
             mask_jx=np.pad(hn, (0, pad - E)),
             kd=kd_pad,
             kd_order=np.argsort(kd_pad, kind="stable").astype(np.int32),
+            ij_order=np.argsort(ij_pad, kind="stable").astype(np.int32),
             dense2patch=dense2patch,
             n_depths=n_depths,
             count=E,

@@ -13,7 +13,8 @@ from dpvo_tpu.ops import patchify as j_patchify
 from dpvo_tpu.ops.corr_pallas import corr_features_pallas_fused
 from dpvo_tpu.ops.corr_pallas import corr_sort_order as j_sort_order
 from dpvo_tpu_torch.ops import corr as tcorr
-from dpvo_tpu_torch.ops.corr_cuda import corr_features, corr_sort_order
+from dpvo_tpu_torch.ops.corr_cuda import corr_features
+from dpvo_tpu_torch.ops.corr_pallas import device_sort_order
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value's magnitude
 
@@ -116,7 +117,14 @@ def test_avg_pool_matches():
     np.testing.assert_allclose(got2.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
-def test_corr_sort_order_matches():
+@pytest.mark.parametrize("n_valid", [300, 250])
+def test_corr_sort_order_matches(n_valid):
+    """The port sorts the edges on the device; the JAX host's
+    corr_sort_order keys invalid edges as uint16 max, the device sort as
+    2^30: the same valid-first stable order and inverse either way."""
     jj = np.random.default_rng(6).integers(0, 4096, 300)
-    for a, b in zip(corr_sort_order(jj, 300, 384, 32), j_sort_order(jj, 300, 384, 32)):
-        np.testing.assert_array_equal(a, b)
+    jj1 = torch.zeros(384, dtype=torch.int32)
+    jj1[:n_valid] = torch.as_tensor(jj[:n_valid] % 32)
+    got = device_sort_order(jj1, torch.arange(384) < n_valid)
+    for a, b in zip(got, j_sort_order(jj, n_valid, 384, 32)):
+        np.testing.assert_array_equal(a.numpy(), b)

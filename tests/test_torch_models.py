@@ -17,7 +17,8 @@ from dpvo_tpu.models.blocks import segment_softmax as j_segment_softmax
 from dpvo_tpu.runtime.topology import dense_rank, neighbors, pair_rank
 from dpvo_tpu.runtime.weights import load_params
 from dpvo_tpu_torch.config import Config
-from dpvo_tpu_torch.models.blocks import segment_softmax
+from dpvo_tpu_torch.ba.segsum import segment_sum_plain
+from dpvo_tpu_torch.models.blocks import grouped_sum, segment_softmax
 from dpvo_tpu_torch.runtime.weights import load_networks, load_npz, params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -137,6 +138,20 @@ def test_segment_softmax_matches():
     want = j_segment_softmax(jnp.asarray(x), jnp.asarray(seg), 9, jnp.asarray(valid))
     got = segment_softmax(torch.as_tensor(x), torch.as_tensor(seg), 9, torch.as_tensor(valid))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("ns", [9, 2560])
+def test_grouped_sum_matches_segment_sum(ns):
+    """SoftAgg's grouped sum on the CPU (index_add_, O(E*K)) against the
+    segment-sum kernel's plain version, the function it takes on the card;
+    rows of seg >= ns are dropped. f32 sums in two orders."""
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((3000, 16)).astype(np.float32))
+    seg = torch.as_tensor(rng.integers(0, ns + 1, 3000).astype(np.int32))
+    got = grouped_sum(x, seg, ns)
+    want = segment_sum_plain(x, seg, torch.argsort(seg, stable=True), ns)
+    assert got.dtype == torch.float32 and got.shape == (ns, 16)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_npz_tree_equals_load_params():
