@@ -9,10 +9,14 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the default configuration's steady state (correlation, all
-   variants: 37344 live edges in a 40960-row bucket; segment sum: [49152,
-   98] into 2560 rows; SPD solve: n = 96, forward and backward). Print the
-   error and the median time of the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call (``library_ms``).
+   variants: 37344 live edges in a 40960-row bucket, 5% of them spread 3-6
+   px so that corr.cu takes both its branches, whose counts are printed;
+   segment sum: [49152, 98] into 2560 rows; SPD solve: n = 96, forward and
+   backward). Print the error and the median time of the kernel, the plain
+   version and, where one PyTorch call computes the same function, that
+   call (``library_ms``): each an event pair around one call, host launch
+   included (``ms``), and for the kernels also the device time of their
+   launches alone (``device_ms``, profiler).
 3. Drive the main path through the tracker's entry points: DPVO with
    config/default.yaml (CORR_IMPL auto) and weights/vonet_synth.npz on a
    synthetic 480x640 plane scene for 40 frames, then terminate(). The
@@ -25,7 +29,8 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    pallas_dma, pallas_fused), counters zeroed before each run: each run's
    correlation kernels must have run, and its ATE stay within
    IMPL_ATE_FACTOR of the exact (xla) run's. The xla run is made twice and
-   the two trajectories must be bit for bit equal.
+   the two trajectories must be bit for bit equal; the second counts how
+   many live edges took each of corr.cu's branches.
 5. Small-path parity: the tiny configuration of the tests
    (tests/fixtures/tiny_synth.npz, 48x64, 24 frames, f32) on the card and
    on the CPU with the same injected draws: free-running (init state,
@@ -74,6 +79,28 @@ def cuda_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
+def device_ms(fn, reps, warmup=2):
+    """Device time per call of the kernels fn() launches (profiler, summed
+    over them). Beside cuda_ms's event pair, which includes the host's
+    launch: for a call shorter than its launch, that times the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / 1e3 / reps
+
+
 def bound(nbytes, flops, peak_flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -99,7 +126,7 @@ def phase_kernels(torch, kernels):
     from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
     from dpvo_tpu_torch.ba.spd_solve import spd_solve, spd_solve_plain
     from dpvo_tpu_torch.ops.corr import corr_features_plain
-    from dpvo_tpu_torch.ops.corr_cuda import corr_features
+    from dpvo_tpu_torch.ops.corr_cuda import corr_features, union_tile_levels
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -115,13 +142,24 @@ def phase_kernels(torch, kernels):
         [W1 + 8.0, H1 + 8.0], device=dev) - 4.0
     off = torch.stack(torch.meshgrid(torch.arange(-1.0, 2.0, device=dev),
                                      torch.arange(-1.0, 2.0, device=dev), indexing="ij"), -1)
-    coords = (ctr + off.flip(-1)[None] +
-              0.3 * torch.randn((E_cap, 3, 3, 2), generator=g, device=dev)).contiguous()
+    # pixels 1 px apart, and 3-6 px apart on 5% of the edges (depth or
+    # rotation spreading a patch), which exceeds corr.cu's union cap
+    spread = torch.where(torch.rand((E_cap, 1, 1, 1), generator=g, device=dev) < 0.05,
+                         3 + 3 * torch.rand((E_cap, 1, 1, 1), generator=g, device=dev),
+                         torch.ones((E_cap, 1, 1, 1), device=dev))
+    noise = 0.3 * torch.randn((E_cap, 3, 3, 2), generator=g, device=dev)
+    coords = (ctr + spread * off.flip(-1)[None] + noise).contiguous()
     ii1 = torch.randint(0, pmem * M, (E_cap,), generator=g, device=dev, dtype=torch.int32)
     jj1 = torch.randint(5, 5 + 22, (E_cap,), generator=g, device=dev,
                         dtype=torch.int32)  # 22 live frames
     valid = torch.arange(E_cap, device=dev) < E
     args = (gmap, fmap1, fmap2, coords, ii1, jj1, valid)
+    tiles = union_tile_levels(coords[:E], (H1, W1), (H2, W2))
+    print(f"corr: live (edge, level) items by branch, kernel's rule: union tile "
+          f"{int(tiles[:, 0].sum())} + {int(tiles[:, 1].sum())}, per-pixel "
+          f"{int((~tiles[:, 0]).sum())} + {int((~tiles[:, 1]).sum())} (level 1 + level 2)")
+    if tiles.all() or not tiles.any():
+        raise AssertionError("the correlation inputs do not take both of corr.cu's branches")
     k = corr_features(*args).float()
     p = corr_features_plain(*args).float()
     # one bf16 ulp of the value, plus the f32 accumulation error of a
@@ -140,8 +178,14 @@ def phase_kernels(torch, kernels):
     nbytes = (nframes * (H1 * W1 + H2 * W2) * C * 2 + nrows * C * 9 * 2 + E * 9 * 2 * 4
               + E_cap * (4 + 4 + 1) + E_cap * 9 * 128 * 2)
     flops = E * 2 * 9 * 64 * C * 2
-    out["corr"] = dict(max_abs_err=err.max().item(),
-                       ms=cuda_ms(lambda: corr_features(*args), 20),
+    # the same edges with every patch's pixels 1 px apart, the main path's
+    # geometry (phase 4 counts its branches)
+    near = (gmap, fmap1, fmap2, (ctr + off.flip(-1)[None] + noise).contiguous(), ii1, jj1, valid)
+    print(f"corr: ms per call with every patch 1 px apart "
+          f"{cuda_ms(lambda: corr_features(*near), 20):.4f} (device "
+          f"{device_ms(lambda: corr_features(*near), 20):.4f})")
+    out["corr"] = dict(max_abs_err=err.max().item(), ms=cuda_ms(lambda: corr_features(*args), 20),
+                       device_ms=device_ms(lambda: corr_features(*args), 20),
                        plain_ms=cuda_ms(lambda: corr_features_plain(*args), 3, warmup=1),
                        library_ms=None, bound=bound(nbytes, flops, PEAK_BF16))
     out.update(corr_variant_kernels(torch, args, nframes, nrows))
@@ -160,10 +204,17 @@ def phase_kernels(torch, kernels):
     if (err > 1e-5 * scale + 1e-6).any():  # f32 summation-order error, run length ~20
         raise AssertionError("segment-sum kernel disagrees with its plain version")
     print(f"segsum: max_abs_err {err.max().item():.6g}")
+    index_add = lambda: torch.zeros((Md, K), device=dev).index_add_(0, kd, payload)
+    seg_ms = dict(ms=cuda_ms(lambda: segment_sum(payload, kd, order, Md), 50),
+                  library_ms=cuda_ms(index_add, 50),
+                  device_ms=device_ms(lambda: segment_sum(payload, kd, order, Md), 50),
+                  library_device_ms=device_ms(index_add, 50))
+    print("segsum: ms {ms:.5f} (index_add_ with its zeroing {library_ms:.5f}); device time "
+          "{device_ms:.5f} ({library_device_ms:.5f})".format(**seg_ms))
     out["segsum"] = dict(
-        max_abs_err=err.max().item(), ms=cuda_ms(lambda: segment_sum(payload, kd, order, Md), 50),
+        max_abs_err=err.max().item(), ms=seg_ms["ms"], library_ms=seg_ms["library_ms"],
+        device_ms=seg_ms["device_ms"],
         plain_ms=cuda_ms(lambda: segment_sum_plain(payload, kd, order, Md), 10),
-        library_ms=cuda_ms(lambda: torch.zeros((Md, K), device=dev).index_add_(0, kd, payload), 50),
         # payload and the int32 kd, order read once, the output written once
         bound=bound(Eb * K * 4 + Eb * 4 * 2 + Md * K * 4, Eb * K, PEAK_F32))
 
@@ -173,24 +224,31 @@ def phase_kernels(torch, kernels):
     S = (A @ A.T + n * torch.eye(n, device=dev)).contiguous()
     y = torch.randn(n, generator=g, device=dev)
     w = torch.randn(n, generator=g, device=dev)
-    grads = []
-    for fn in (spd_solve, spd_solve_plain):
-        Sg, yg = S.clone().requires_grad_(), y.clone().requires_grad_()
-        x = fn(Sg, yg)
-        (w * x * x).sum().backward()
-        grads.append((x.detach(), Sg.grad, yg.grad))
+    Sg, yg = S.clone().requires_grad_(), y.clone().requires_grad_()
+    x = spd_solve(Sg, yg)
+    (w * x * x).sum().backward()
+    # the plain version, forward and the same adjoint: y_bar = S^-1 g, S_bar = -y_bar x^T
+    xp = spd_solve_plain(S, y)
+    yb = spd_solve_plain(S, 2 * w * xp)
+    grads = [(x.detach(), Sg.grad, yg.grad), (xp, -torch.outer(yb, xp), yb)]
     errs = [(a - b).abs().max().item() / b.abs().max().item() for a, b in zip(*grads)]
     print(f"spd_solve: relative max error x {errs[0]:.3g}, dS {errs[1]:.3g}, dy {errs[2]:.3g}")
-    if max(errs) > 1e-4:  # f32 Gauss-Jordan, condition number ~1e2
+    if max(errs) > 1e-4:  # f32 Cholesky, condition number ~5
         raise AssertionError("SPD kernel (forward or backward) disagrees with its plain version")
+    times = dict(ms=cuda_ms(lambda: spd_solve(S, y), 50),
+                 library_ms=cuda_ms(lambda: torch.linalg.solve(S, y), 50),
+                 device_ms=device_ms(lambda: spd_solve(S, y), 50),
+                 library_device_ms=device_ms(lambda: torch.linalg.solve(S, y), 50))
+    print("spd_solve: ms {ms:.5f} (torch.linalg.solve {library_ms:.5f}); device time "
+          "{device_ms:.5f} ({library_device_ms:.5f})".format(**times))
     out["spd_solve"] = dict(
         max_abs_err=(grads[0][0] - grads[1][0]).abs().max().item(),
-        ms=cuda_ms(lambda: spd_solve(S, y), 50),
+        ms=times["ms"], library_ms=times["library_ms"], device_ms=times["device_ms"],
         plain_ms=cuda_ms(lambda: spd_solve_plain(S, y), 10),
-        library_ms=cuda_ms(lambda: torch.linalg.solve(S, y), 50),
         # S and y read, x written; the least work of an SPD solve is a
-        # Cholesky factorization and two triangular solves, n^3/3 + 2n^2
-        # (the kernel's Gauss-Jordan does 2n^2(n+1))
+        # Cholesky factorization and two triangular solves, n^3/3 + 2n^2,
+        # what the kernel does. A dependency chain of 3n steps, which
+        # neither bound sees, sets its time
         bound=bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n, PEAK_F32))
     return out
 
@@ -235,6 +293,7 @@ def corr_variant_kernels(torch, args, nframes, nrows):
         corner_bytes = E_cap * (9 if key == "win" else 1) * 2 * 4
         nbytes = feat_bytes + 2 * (idx_bytes + corner_bytes + E_cap * 9 * npos * 2)
         out[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: run(kern), 20),
+                         device_ms=device_ms(lambda: run(kern), 20),
                          plain_ms=cuda_ms(lambda: run(plain, **kw), 2, warmup=1),
                          library_ms=None,
                          bound=bound(nbytes, 2 * E * 9 * npos * C * 2, PEAK_BF16))
@@ -250,6 +309,7 @@ def corr_variant_kernels(torch, args, nframes, nrows):
     # per output 17 column taps and per row-stage value 9 taps, 2 operations each
     nbytes = 2 * E_cap * 9 * (384 * 2 + 5 * 4 + 168 * 2)
     out["corr_v3_epi"] = dict(max_abs_err=err, ms=cuda_ms(lambda: epi(cp.epilogue_v3), 20),
+                              device_ms=device_ms(lambda: epi(cp.epilogue_v3), 20),
                               plain_ms=cuda_ms(lambda: epi(cp.epilogue_v3_plain), 3),
                               library_ms=None,
                               bound=bound(nbytes, 2 * E_cap * 9 * 168 * 2 * (17 + 9), PEAK_F32))
@@ -355,6 +415,24 @@ def phase_corr_impls(torch, kernels):
         torch.cuda.synchronize()
         return slam, poses, dict(kernels.LAUNCHES), time.perf_counter() - t0
 
+    def count_branches():
+        """Wrap the tracker's correlation so that each call also counts its
+        live (edge, level) items by corr.cu's branch (kernel's rule); the
+        values and launches are those of the plain run. Returns the counts
+        [live edges, union tiles level 1, level 2] and an undo."""
+        from dpvo_tpu_torch.ops.corr_cuda import union_tile_levels
+        from dpvo_tpu_torch.runtime import steps
+
+        real, counts = steps.corr_features, torch.zeros(3, dtype=torch.long, device="cuda")
+
+        def counted(g, f1, f2, coords, ii, jj, valid, radius=3, clamp=False):
+            tiles = union_tile_levels(coords, f1.shape[1:3], f2.shape[1:3], radius, clamp)
+            counts.add_(torch.cat([valid.sum()[None], (tiles & valid[:, None]).sum(0)]))
+            return real(g, f1, f2, coords, ii, jj, valid, radius=radius, clamp=clamp)
+
+        steps.corr_features = counted
+        return counts, lambda: setattr(steps, "corr_features", real)
+
     launches, ates = {}, {}
     for impl, ks in IMPL_KERNELS.items():
         slam, poses, launches[impl], sec = run(impl)
@@ -368,7 +446,13 @@ def phase_corr_impls(torch, kernels):
               f"keyframes {slam.n}, ATE {ates[impl]:.5f}, launches "
               f"{ {k: v for k, v in launches[impl].items() if v} }")
         if impl == "xla":
+            counts, undo = count_branches()
             again = run(impl)[1]
+            undo()
+            n, t1, t2 = counts.tolist()
+            print(f"CORR_IMPL={impl}: corr.cu's branches over the run, kernel's rule: union tile "
+                  f"{t1} of {n} live edges at level 1, {t2} at level 2; per-pixel {n - t1} + "
+                  f"{n - t2}")
             print(f"CORR_IMPL={impl}: a second run bit for bit equal: "
                   f"{np.array_equal(poses, again)} (largest difference "
                   f"{np.abs(again - poses).max():.3g})")
@@ -420,8 +504,9 @@ SMALL_CFG = dict(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=10, OPTIMIZ
 # rounding differences on most random draws of those patches: a keyframe
 # decision flips and the trajectories part. The draws of this seed are ones
 # on which it does not (tests/test_torch_slice.py::
-# test_small_parity_draws_are_well_conditioned holds them to that on the CPU).
-SMALL_DRAW_SEED = 83
+# test_small_parity_draws_are_well_conditioned holds them to that on the CPU),
+# with 1, 2, 4 or 8 torch threads on the CPU (each a summation order of its own).
+SMALL_DRAW_SEED = 109
 # Per-frame tolerances, as a fraction of each buffer's largest magnitude.
 # The feature rings and patches come from the encoders alone (f32 convolutions
 # in another summation order); the edge payloads pass through up to 12 update
@@ -600,8 +685,8 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": meta[name][2][name],
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"], "kernel_ms": s["ms"],
-                     "plain_ms": s["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": s["library_ms"]})
+                     "device_ms": s["device_ms"], "plain_ms": s["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": s["library_ms"]})
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,15 @@
 """Small dense SPD solve: the CUDA kernel's wrapper (``csrc/spd_solve.cu``),
 its plain version, and the autograd Function around both.
 
-Port of ``dpvo_tpu/ba/spd_solve.py``: Gauss-Jordan without pivoting on
-``[S | y]`` for the damped SPD pose system of the sliding-window BA
-(n = 6 * W_OPT_MAX). Differentiable like the JAX custom VJP
-(``spd_solve.py:48-70``): the backward pass is another solve with the
-same symmetric matrix, y_bar = S^{-1} g, S_bar = -y_bar x^T.
+Port of ``dpvo_tpu/ba/spd_solve.py``, the solve of the damped SPD pose
+system of the sliding-window BA (n = 6 * W_OPT_MAX <= 96; the card's
+tracker refuses a larger window when it is built). The TPU kernel
+runs Gauss-Jordan without pivoting on ``[S | y]``; the port factorizes
+S = L L^T (right-looking Cholesky, lower triangle of S) and solves
+L z = y, L^T x = z: the same x for a symmetric positive definite S, and a
+non-finite x where S is not positive definite. Differentiable like the
+JAX custom VJP (``spd_solve.py:48-70``): the backward pass is another
+solve with the same symmetric matrix, y_bar = S^{-1} g, S_bar = -y_bar x^T.
 """
 
 from __future__ import annotations
@@ -15,17 +19,33 @@ import torch
 from dpvo_tpu_torch import kernels
 
 
+MAX_N = 96  # the kernel's register tile (csrc/spd_solve.cu: kMaxN)
+
+
 def spd_solve_plain(S, y):
-    """Gauss-Jordan elimination without pivoting, in torch (the
-    kernel's arithmetic, sweep by sweep)."""
+    """The kernel's arithmetic step by step in torch: the right-looking
+    Cholesky factorization (pivot k's 1/sqrt, column k of L, the rank-1
+    update of the trailing block), then forward and back substitution
+    with the pivots' 1/sqrt."""
     n = S.shape[0]
-    A = torch.cat([S, y[:, None]], dim=1).to(torch.float32)
+    A = S.to(torch.float32)
     rows = torch.arange(n, device=S.device)
+    cols, rdiag = [], []
     for k in range(n):
-        fac = A[:, k] / A[k, k]
-        fac = torch.where(rows == k, torch.zeros_like(fac), fac)
-        A = A - fac[:, None] * A[k][None, :]
-    return A[:, n] / torch.diagonal(A[:, :n])
+        r = torch.rsqrt(A[k, k])
+        l = torch.where(rows > k, A[:, k] * r, torch.zeros_like(r))
+        A = A - torch.outer(l, l)
+        cols.append(l)
+        rdiag.append(r)
+    L = torch.stack(cols, 1)
+    z = y.to(torch.float32)
+    for k in range(n):
+        zk = z[k] * rdiag[k]
+        z = torch.where(rows == k, zk, torch.where(rows > k, z - L[:, k] * zk, z))
+    for k in reversed(range(n)):
+        xk = z[k] * rdiag[k]
+        z = torch.where(rows == k, xk, torch.where(rows < k, z - L[k, :] * xk, z))
+    return z
 
 
 def _solve(S, y):
@@ -34,6 +54,8 @@ def _solve(S, y):
     n = S.shape[0]
     if S.shape != (n, n) or y.shape != (n,):
         raise ValueError(f"spd_solve: S [n,n] and y [n], got {tuple(S.shape)} {tuple(y.shape)}")
+    if n > MAX_N:
+        raise ValueError(f"spd_solve: the kernel solves n <= {MAX_N}, got {n}")
     if S.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError("spd_solve: f32 only")
     S = S.contiguous()

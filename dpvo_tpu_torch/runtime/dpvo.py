@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dpvo_tpu_torch.ba.spd_solve import MAX_N as SPD_MAX_N
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.lie import se3
 from dpvo_tpu_torch.models.patchifier import random_centroids
@@ -62,6 +63,9 @@ class DPVO:
         self.cfg = cfg
         self.ht, self.wd = ht, wd
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and 6 * cfg.W_OPT_MAX > SPD_MAX_N:
+            raise ValueError(f"DPVO: the card's pose solve takes 6 * W_OPT_MAX <= {SPD_MAX_N} "
+                             f"unknowns (csrc/spd_solve.cu), got W_OPT_MAX {cfg.W_OPT_MAX}")
         if self.device.type == "cuda" and not cfg.MIXED_PRECISION:
             # f32 mode means f32: cuDNN would otherwise run convs in TF32
             torch.backends.cudnn.allow_tf32 = False

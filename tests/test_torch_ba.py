@@ -17,6 +17,7 @@ from dpvo_tpu_torch.ba import solver as tsolver
 from dpvo_tpu_torch.ba.segsum import segment_sum
 from dpvo_tpu_torch.ba.spd_solve import spd_solve
 from test_ba import synthetic_problem
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _t(x, dtype=None):
@@ -50,8 +51,11 @@ def _spd_system(n, seed):
 
 @pytest.mark.parametrize("n", [48, 96])
 def test_spd_solve_matches_pallas_interpret(n):
-    """Gauss-Jordan both sides, f32: elimination order is the same, the
-    rounding of each rank-1 update may differ (fused multiply-add)."""
+    """The port's Cholesky plain version against the JAX Gauss-Jordan, both
+    f32: two factorizations of one system differ by rounding only. The
+    systems are well conditioned (A A^T + n I: condition number ~5), so
+    each solution's f32 error is ~1e-6 of its scale; 1e-4 relative holds
+    that with room and would catch any error in the algorithm."""
     S, y = _spd_system(n, n)
     want = np.asarray(j_spd_solve(jnp.asarray(S), jnp.asarray(y), True))
     got = spd_solve(_t(S), _t(y)).numpy()
@@ -59,8 +63,9 @@ def test_spd_solve_matches_pallas_interpret(n):
 
 
 def test_spd_solve_gradient_matches_custom_vjp():
-    """The autograd Function's backward (another solve; S_bar = -y_bar x^T)
-    against the JAX custom VJP, for a loss touching x nonlinearly."""
+    """The autograd Function's backward (another solve, Cholesky; S_bar =
+    -y_bar x^T) against the JAX custom VJP (Gauss-Jordan), for a loss
+    touching x nonlinearly: rounding of the two factorizations only."""
     S, y = _spd_system(48, 7)
     w = np.random.default_rng(8).standard_normal(48).astype(np.float32)
 
@@ -73,6 +78,22 @@ def test_spd_solve_gradient_matches_custom_vjp():
     (torch.as_tensor(w) * spd_solve(St, yt) ** 2).sum().backward()
     np.testing.assert_allclose(yt.grad.numpy(), np.asarray(gy_want), rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose(St.grad.numpy(), np.asarray(gS_want), rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["nan", "indefinite", "singular"])
+def test_spd_solve_nonpositive_pivot_is_nonfinite(case):
+    """A NaN in S, or an S that is not positive definite, gives a
+    non-finite x (Cholesky takes 1/sqrt of each pivot), which
+    schur_solve turns into a zero update."""
+    S, y = _spd_system(12, 3)
+    k = 5
+    if case == "nan":
+        S[k, k] = np.nan
+    else:  # a pivot < 0, or exactly 0, at step k
+        S[k, :] = S[:, k] = 0.0
+        S[k, k] = -1.0 if case == "indefinite" else 0.0
+    x = spd_solve(_t(S), _t(y))
+    assert not torch.isfinite(x).all()
 
 
 def _ba_both(poses, ctr, intr, target, ii, jj, kd, t0, nfree, W, iters, weight=None,

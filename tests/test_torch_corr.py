@@ -15,6 +15,8 @@ from dpvo_tpu.ops.corr_pallas import corr_sort_order as j_sort_order
 from dpvo_tpu_torch.ops import corr as tcorr
 from dpvo_tpu_torch.ops.corr_cuda import corr_features
 from dpvo_tpu_torch.ops.corr_pallas import device_sort_order
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value's magnitude
 
@@ -128,3 +130,23 @@ def test_corr_sort_order_matches(n_valid):
     got = device_sort_order(jj1, torch.arange(384) < n_valid)
     for a, b in zip(got, j_sort_order(jj, n_valid, 384, 32)):
         np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("spread,tile_l1", [(1.0, True), (5.0, False)])
+def test_union_tile_rule(spread, tile_l1):
+    """corr.cu's branch rule (``union_tile_levels``) against the union of the
+    pixels' exact windows computed in numpy: a real patch (pixels 1 px
+    apart) is staged whole at both levels, pixels 5 px apart go by the
+    per-pixel branch at level 1 (at level 2, 1.25 px apart, by either)."""
+    from dpvo_tpu_torch.ops.corr_cuda import BOX_W, STAGE_POS, union_tile_levels
+
+    coords = make_inputs(7, E=200, spread=spread)[3]
+    want = []
+    for scale, bw, cap in zip((1.0, 4.0), BOX_W, STAGE_POS):
+        corner = np.floor(coords.reshape(200, 9, 2) / np.float32(scale)).astype(np.int64) - 3
+        span = corner.max(1) - corner.min(1) + 8  # (x, y) extent of the union
+        want.append((span[:, 0] <= bw) & (span[:, 1] * bw <= cap))
+    got = union_tile_levels(torch.as_tensor(coords), (24, 32), (6, 8)).numpy()
+    np.testing.assert_array_equal(got, np.stack(want, 1))
+    assert (got[:, 0] == tile_l1).all() and (got[:, 1].all() or not tile_l1)
+

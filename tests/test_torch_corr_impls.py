@@ -35,6 +35,8 @@ from dpvo_tpu_torch.runtime.steps import StepFunctions
 from test_torch_corr import BF16_ULP, assert_bf16_close
 from test_torch_models import jax_params_from_npz
 from test_tracking_e2e import FIXTURE, HT, WD, tiny_cfg
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 IMPLS = {
     "pallas": (jcp.corr_features_pallas, tcp.corr_features_pallas),

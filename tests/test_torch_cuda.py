@@ -7,6 +7,8 @@ Marked ``cuda``; without a CUDA device every test skips. On the card:
 import numpy as np
 import pytest
 import torch
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 pytestmark = pytest.mark.cuda
 
@@ -18,11 +20,16 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 128), (torch.float32, 32)])
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 128), (torch.bfloat16, 32),
+                                     (torch.float32, 32)])
 def test_corr_kernel_matches_plain(dev, dtype, C):
+    """Patches 1 px apart and, on 5% of the edges, 3-6 px apart, windows
+    partly outside the maps: at bf16 C = 128 the tile kernel takes both of
+    its branches (union tile and per-pixel windows); bf16 at C = 32 and f32
+    run the per-pixel kernel."""
     from dpvo_tpu_torch import kernels
     from dpvo_tpu_torch.ops.corr import corr_features_plain
-    from dpvo_tpu_torch.ops.corr_cuda import corr_features
+    from dpvo_tpu_torch.ops.corr_cuda import corr_features, union_tile_levels
 
     g = torch.Generator().manual_seed(C)
     E = 500
@@ -32,11 +39,15 @@ def test_corr_kernel_matches_plain(dev, dtype, C):
     base = torch.rand(E, 1, 1, 2, generator=g) * torch.tensor([40.0, 32.0]) - 4
     grid = torch.stack(torch.meshgrid(torch.arange(-1.0, 2.0), torch.arange(-1.0, 2.0),
                                       indexing="ij"), -1).flip(-1)
-    coords = (base + grid[None] + 0.5 * torch.rand(E, 3, 3, 2, generator=g)).contiguous()
+    spread = torch.where(torch.rand(E, 1, 1, 1, generator=g) < 0.05,
+                         3 + 3 * torch.rand(E, 1, 1, 1, generator=g), torch.ones(E, 1, 1, 1))
+    coords = (base + spread * grid[None] + 0.5 * torch.rand(E, 3, 3, 2, generator=g)).contiguous()
     ii = torch.randint(0, 64, (E,), generator=g, dtype=torch.int32)
     jj = torch.randint(0, 6, (E,), generator=g, dtype=torch.int32)
     valid = torch.rand(E, generator=g) > 0.1
     args = (gmap, f1, f2, coords, ii, jj, valid)
+    tiles = union_tile_levels(coords, (24, 32), (6, 8))
+    assert tiles.all(1).any() and not tiles.all()  # both branches
     want = corr_features_plain(*args).float()
     before = kernels.LAUNCHES["corr"]
     got = corr_features(*(a.to(dev) for a in args)).float().cpu()
@@ -63,6 +74,10 @@ def test_segsum_kernel_matches_plain(dev):
 
 @pytest.mark.parametrize("n", [48, 96])
 def test_spd_kernel_matches_plain_with_gradient(dev, n):
+    """The Cholesky kernel, forward and backward (the autograd Function),
+    against the plain version, forward and the same adjoint (y_bar =
+    S^-1 g, S_bar = -y_bar x^T): f32 rounding of one algorithm on a
+    well-conditioned system."""
     from dpvo_tpu_torch.ba.spd_solve import spd_solve, spd_solve_plain
 
     g = torch.Generator().manual_seed(n)
@@ -70,16 +85,24 @@ def test_spd_kernel_matches_plain_with_gradient(dev, n):
     S = A @ A.T + n * torch.eye(n)
     y = torch.randn(n, generator=g)
     w = torch.randn(n, generator=g)
-    out = []
-    for fn, d in ((spd_solve, dev), (spd_solve_plain, torch.device("cpu"))):
-        Sg = S.to(d).requires_grad_()
-        yg = y.to(d).requires_grad_()
-        x = fn(Sg, yg)
-        (w.to(d) * x * x).sum().backward()
-        out.append([t.detach().cpu() for t in (x, Sg.grad, yg.grad)])
-    for a, b in zip(*out):  # f32 Gauss-Jordan, well-conditioned system
+    Sg = S.to(dev).requires_grad_()
+    yg = y.to(dev).requires_grad_()
+    x = spd_solve(Sg, yg)
+    (w.to(dev) * x * x).sum().backward()
+    got = [t.detach().cpu() for t in (x, Sg.grad, yg.grad)]
+    xp = spd_solve_plain(S, y)
+    yb = spd_solve_plain(S, 2 * w * xp)
+    for a, b in zip(got, (xp, -torch.outer(yb, xp), yb)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5 * b.abs().max().item())
+
+
+def test_spd_kernel_nonpositive_pivot_is_nonfinite(dev):
+    from dpvo_tpu_torch.ba.spd_solve import spd_solve
+
+    S = torch.eye(96) * 2
+    S[40, 40] = -1.0
+    assert not torch.isfinite(spd_solve(S.to(dev), torch.ones(96, device=dev)).cpu()).all()
 
 
 def _tile_inputs(C, E=300, mem=5, H=24, W=32, seed=0):

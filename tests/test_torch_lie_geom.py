@@ -13,6 +13,8 @@ from dpvo_tpu.lie import so3 as jso3
 from dpvo_tpu_torch.geom import projective as tpops
 from dpvo_tpu_torch.lie import se3 as tse3
 from dpvo_tpu_torch.lie import so3 as tso3
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 RTOL, ATOL = 1e-5, 1e-5
 

@@ -20,6 +20,8 @@ from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.ba.segsum import segment_sum_plain
 from dpvo_tpu_torch.models.blocks import grouped_sum, segment_softmax
 from dpvo_tpu_torch.runtime.weights import load_networks, load_npz, params_from_jax
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPTS = {

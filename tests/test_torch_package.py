@@ -10,6 +10,19 @@ import sys
 import pytest
 import torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread on the CPU for a module's tests: the suite
+    runs in parallel workers, and a default pool of one thread per core in
+    each of them oversubscribes the host. Every tests/test_torch_*.py that
+    runs torch on the CPU imports it, which makes it autouse there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
@@ -43,6 +56,21 @@ def test_dpvo_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DPVO(cfg, None, 32, 32)
     with pytest.raises(RuntimeError, match="CUDA"):
+        DPVO(cfg, None, 32, 32, device="cuda")
+    assert DPVO(cfg, None, 32, 32, device="cpu").device.type == "cpu"
+
+
+def test_card_tracker_rejects_a_window_beyond_the_pose_solve(monkeypatch):
+    """The card's SPD kernel solves at most MAX_N unknowns: a configuration
+    with more is refused when the tracker is built, not at its first BA."""
+    from dpvo_tpu_torch import DPVO
+    from dpvo_tpu_torch.ba.spd_solve import MAX_N
+    from dpvo_tpu_torch.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)  # no card is touched
+    cfg = Config(BUFFER_SIZE=16, PATCHES_PER_FRAME=4, DIM=32, FDIM=16, E_MAX=64,
+                 E_INAC_MAX=64, M_OPT_MAX=32, W_OPT_MAX=MAX_N // 6 + 1, MIXED_PRECISION=False)
+    with pytest.raises(ValueError, match="W_OPT_MAX"):
         DPVO(cfg, None, 32, 32, device="cuda")
     assert DPVO(cfg, None, 32, 32, device="cpu").device.type == "cpu"
 

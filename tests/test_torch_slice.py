@@ -6,6 +6,7 @@ draws injected into the port."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from dpvo_tpu.eval import ate_rmse
 from dpvo_tpu.runtime import DPVO as JDPVO
@@ -15,6 +16,8 @@ from dpvo_tpu_torch.config import Config as TConfig
 from dpvo_tpu_torch.runtime.dpvo import DPVO as TDPVO
 from test_torch_models import jax_params_from_npz
 from test_tracking_e2e import FIXTURE, HT, WD, tiny_cfg
+from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 N_FRAMES = 24
 
