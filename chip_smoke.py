@@ -11,8 +11,10 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    shapes of the default configuration's steady state (correlation, all
    variants: 37344 live edges in a 40960-row bucket, 5% of them spread 3-6
    px so that corr.cu takes both its branches, whose counts are printed;
-   segment sum: [49152, 98] into 2560 rows; SPD solve: n = 96, forward and
-   backward). Print the error and the median time of the kernel, the plain
+   kernel D also at the ends of its window offsets; segment sum: BA's f32
+   [49152, 98] into 2560 rows and SoftAgg's two bf16 [40960, 768] sums, bit
+   for bit against the plain version on the CPU; SPD solve: n = 96, forward
+   and backward). Print the error and the median time of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (``library_ms``): each an event pair around one call, host launch
    included (``ms``), and for the kernels also the device time of their
@@ -28,7 +30,8 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
 4. The same path for 30 frames once per CORR_IMPL (xla, pallas, pallas_sw,
    pallas_dma, pallas_fused), counters zeroed before each run: each run's
    correlation kernels must have run, and its ATE stay within
-   IMPL_ATE_FACTOR of the exact (xla) run's. The xla run is made twice and
+   IMPL_ATE_FACTOR of the exact (xla) run's; pallas_dma's last 5 frames run
+   under the profiler. The xla run is made twice and
    the two trajectories must be bit for bit equal; the second counts how
    many live edges took each of corr.cu's branches.
 5. Small-path parity: the tiny configuration of the tests
@@ -123,7 +126,6 @@ def ate_rmse(est, gt):
 
 def phase_kernels(torch, kernels):
     """Each kernel against its plain version at the main path's shapes."""
-    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
     from dpvo_tpu_torch.ba.spd_solve import spd_solve, spd_solve_plain
     from dpvo_tpu_torch.ops.corr import corr_features_plain
     from dpvo_tpu_torch.ops.corr_cuda import corr_features, union_tile_levels
@@ -190,33 +192,7 @@ def phase_kernels(torch, kernels):
                        library_ms=None, bound=bound(nbytes, flops, PEAK_BF16))
     out.update(corr_variant_kernels(torch, args, nframes, nrows))
 
-    # ---- segment sum: [49152, 98] into 2560 depth rows ----
-    Eb, K, Md = 49152, 98, 2560
-    kd = torch.cat([torch.arange(Md, device=dev),
-                    torch.randint(0, Md, (Eb - Md,), generator=g, device=dev)])
-    kd = kd[torch.randperm(Eb, generator=g, device=dev)].to(torch.int32)
-    order = torch.argsort(kd, stable=True).to(torch.int32)
-    payload = torch.randn((Eb, K), generator=g, device=dev)
-    k = segment_sum(payload, kd, order, Md)
-    p = segment_sum_plain(payload, kd, order, Md)
-    scale = torch.zeros((Md, K), device=dev).index_add_(0, kd, payload.abs())
-    err = (k - p).abs()
-    if (err > 1e-5 * scale + 1e-6).any():  # f32 summation-order error, run length ~20
-        raise AssertionError("segment-sum kernel disagrees with its plain version")
-    print(f"segsum: max_abs_err {err.max().item():.6g}")
-    index_add = lambda: torch.zeros((Md, K), device=dev).index_add_(0, kd, payload)
-    seg_ms = dict(ms=cuda_ms(lambda: segment_sum(payload, kd, order, Md), 50),
-                  library_ms=cuda_ms(index_add, 50),
-                  device_ms=device_ms(lambda: segment_sum(payload, kd, order, Md), 50),
-                  library_device_ms=device_ms(index_add, 50))
-    print("segsum: ms {ms:.5f} (index_add_ with its zeroing {library_ms:.5f}); device time "
-          "{device_ms:.5f} ({library_device_ms:.5f})".format(**seg_ms))
-    out["segsum"] = dict(
-        max_abs_err=err.max().item(), ms=seg_ms["ms"], library_ms=seg_ms["library_ms"],
-        device_ms=seg_ms["device_ms"],
-        plain_ms=cuda_ms(lambda: segment_sum_plain(payload, kd, order, Md), 10),
-        # payload and the int32 kd, order read once, the output written once
-        bound=bound(Eb * K * 4 + Eb * 4 * 2 + Md * K * 4, Eb * K, PEAK_F32))
+    out.update(segsum_kernels(torch, g))
 
     # ---- SPD solve: the n = 96 damped pose system, forward and backward ----
     n = 96
@@ -250,6 +226,72 @@ def phase_kernels(torch, kernels):
         # what the kernel does. A dependency chain of 3n steps, which
         # neither bound sees, sets its time
         bound=bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n, PEAK_F32))
+    return out
+
+
+def segsum_kernels(torch, g):
+    """The segment sum at its two shapes on the path, each against its plain
+    version run on the CPU (index_add_ there adds row after row, the
+    kernel's order; on the card it adds with atomics): the same bits.
+    segsum: BA's f32 [49152, 98] into 2560 depth rows. segsum_bf16: one
+    SoftAgg layer's two sums of a bf16 [40960, 768] payload, by patch into
+    2560 rows (~16 edges each) and by frame pair into 2048 (96 edges each,
+    ~430 ids, the rest empty; 1% of the rows past the last id, as the small
+    branch maps invalid rows, dropped)."""
+    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+
+    dev = torch.device("cuda")
+
+    def shuffled(kd):
+        kd = kd[torch.randperm(kd.shape[0], generator=g, device=dev)].to(torch.int32)
+        return kd, torch.argsort(kd, stable=True).to(torch.int32)
+
+    def groups(E, Md):  # every id once, the rest at random
+        return torch.cat([torch.arange(Md, device=dev),
+                          torch.randint(0, Md, (E - Md,), generator=g, device=dev)])
+
+    Eb, Kb, Mb = 49152, 98, 2560
+    Es, Ks = 40960, 768
+    ij = torch.arange(Es, device=dev) // 96
+    ij[torch.rand(Es, generator=g, device=dev) < 0.01] = 2048
+    x = torch.randn((Es, Ks), generator=g, device=dev).to(torch.bfloat16)
+    shapes = {
+        "segsum": [(torch.randn((Eb, Kb), generator=g, device=dev), *shuffled(groups(Eb, Mb)),
+                    Mb)],
+        "segsum_bf16": [(x, *shuffled(groups(Es, 2560)), 2560), (x, *shuffled(ij), 2048)],
+    }
+    out = {}
+    for name, calls in shapes.items():
+        got = [segment_sum(*c).cpu() for c in calls]
+        want = [segment_sum_plain(p.cpu(), kd.cpu(), Md) for p, kd, _, Md in calls]
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"{name}: bit for bit equal to the plain version: {same} (max_abs_err {err:.3g})")
+        if not same:
+            raise AssertionError(f"{name} kernel disagrees with its plain version")
+        # index_add_ with its zeroing (and, for bf16, the f32 cast it needs)
+        lib_args = [(p, torch.where((kd < 0) | (kd >= Md), Md, kd).long(), Md)
+                    for p, kd, _, Md in calls]
+        run = lambda: [segment_sum(*c) for c in calls]
+        lib = lambda: [torch.zeros((Md + 1, p.shape[1]), device=dev).index_add_(0, kd, p.float())
+                       for p, kd, Md in lib_args]
+        t = dict(ms=cuda_ms(run, 50), library_ms=cuda_ms(lib, 50), device_ms=device_ms(run, 50),
+                 library_device_ms=device_ms(lib, 50))
+        print(f"{name}: ms {{ms:.5f}} (index_add_ {{library_ms:.5f}}); device time "
+              "{device_ms:.5f} ({library_device_ms:.5f})".format(**t))
+        if len(calls) > 1:
+            print(f"{name}: device time per call " + ", ".join(
+                f"{device_ms(lambda: segment_sum(*c), 50):.5f} (into {c[3]} rows)" for c in calls))
+        # the payload rows of ids in [0, Md) read once, the int32 kd and
+        # order once, the f32 output written once; one add per value read
+        kept = sum(int(((kd >= 0) & (kd < Md)).sum()) for _, kd, _, Md in calls)
+        nbytes = sum(p.shape[0] * 8 + Md * p.shape[1] * 4 for p, _, _, Md in calls) \
+            + kept * calls[0][0].shape[1] * calls[0][0].element_size()
+        out[name] = dict(max_abs_err=err, ms=t["ms"], library_ms=t["library_ms"],
+                         device_ms=t["device_ms"],
+                         plain_ms=cuda_ms(lambda: [segment_sum_plain(p, kd, Md)
+                                                   for p, kd, _, Md in calls], 10),
+                         bound=bound(nbytes, kept * calls[0][0].shape[1], PEAK_F32))
     return out
 
 
@@ -302,17 +344,34 @@ def corr_variant_kernels(torch, args, nframes, nrows):
     epi = lambda fn: [fn(sl, *lv["epi"]) for sl, lv in zip(s_levels, levels)]
     got, want = epi(cp.epilogue_v3), epi(cp.epilogue_v3_plain)
     err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-    print(f"corr_v3_epi: max_abs_err {err:.6g} (bit for bit: the same rounding points)")
+    print(f"corr_v3_epi: max_abs_err {err:.6g} (torch.equal: the same rounding points)")
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("corr_v3_epi kernel disagrees with its plain version")
-    # per level: s read, dy/dxw/dyf/dxf/vf read, the [E, 9, 168] output written;
-    # per output 17 column taps and per row-stage value 9 taps, 2 operations each
-    nbytes = 2 * E_cap * 9 * (384 * 2 + 5 * 4 + 168 * 2)
+    # the ends of the window offsets, bilinear fractions 0 and 1, masked pixels
+    for dy, dxw in ((0, 0), (0, 15), (7, 0), (7, 15)):
+        frac = torch.tensor([0.0, 1.0], device=s_levels[0].device)[
+            torch.randint(0, 2, (E_cap, 9), device=s_levels[0].device)]
+        full = lambda v: torch.full((E_cap, 9), v, dtype=torch.int32, device=frac.device)
+        case = (s_levels[0], full(dy), full(dxw), frac, 1 - frac,
+                (torch.rand((E_cap, 9), device=frac.device) > 0.3).float())
+        if not torch.equal(cp.epilogue_v3(*case), cp.epilogue_v3_plain(*case)):
+            raise AssertionError(f"corr_v3_epi disagrees with its plain version at dy {dy}, "
+                                 f"dxw {dxw}")
+    print("corr_v3_epi: equal at dy 0 / 7 x dxw 0 / 15, fractions 0 and 1, masked pixels")
+    # per level: the live span of s (rows dy, dy + 1: 192 of 384 values; the
+    # function depends on no other), dy/dxw/dyf/dxf/vf read, the [E, 9, 168]
+    # output written; per row-stage value 2 live taps (product, sum), per
+    # output 2 (two products, sum)
+    nbytes = 2 * E_cap * 9 * (192 * 2 + 5 * 4 + 168 * 2)
+    old = bound(2 * E_cap * 9 * (384 * 2 + 5 * 4 + 168 * 2),
+                2 * E_cap * 9 * 168 * 2 * (17 + 9), PEAK_F32)
+    new = bound(nbytes, 2 * E_cap * 9 * 168 * (4 + 6), PEAK_F32)
+    print(f"corr_v3_epi: bound {new[0]:.5f} ms ({new[1]}; counting all 768 bytes of s and "
+          f"26 taps: {old[0]:.5f})")
     out["corr_v3_epi"] = dict(max_abs_err=err, ms=cuda_ms(lambda: epi(cp.epilogue_v3), 20),
                               device_ms=device_ms(lambda: epi(cp.epilogue_v3), 20),
                               plain_ms=cuda_ms(lambda: epi(cp.epilogue_v3_plain), 3),
-                              library_ms=None,
-                              bound=bound(nbytes, 2 * E_cap * 9 * 168 * 2 * (17 + 9), PEAK_F32))
+                              library_ms=None, bound=new)
     return out
 
 
@@ -359,7 +418,7 @@ def phase_main_path(torch, kernels):
         raise AssertionError("the tracker did not initialize")
     if not np.isfinite(poses).all() or poses.shape != (n_frames, 7):
         raise AssertionError("non-finite or misshapen poses")
-    missing = [k for k in IMPL_KERNELS["xla"] + ["segsum", "spd_solve"] if launches[k] == 0]
+    missing = [k for k in IMPL_KERNELS["xla"] + PATH_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     steady = step_ms[warm:]
@@ -375,8 +434,9 @@ def phase_main_path(torch, kernels):
     return launches
 
 
-# the kernels each CORR_IMPL's correlation runs (BA adds segsum and spd_solve,
-# SoftAgg segsum)
+# the kernels each CORR_IMPL's correlation runs, and those every run of the
+# default configuration adds: BA's f32 segment sum and pose solve, SoftAgg's
+# bf16 segment sums
 IMPL_KERNELS = {"xla": ["corr"], "pallas": ["corr_window"], "pallas_sw": ["corr_sw"],
                 "pallas_dma": ["corr_v3", "corr_v3_epi"], "pallas_fused": ["corr"]}
 # Bound on each variant's ATE, written before the first card run: the variants
@@ -387,6 +447,7 @@ IMPL_KERNELS = {"xla": ["corr"], "pallas": ["corr_window"], "pallas_sw": ["corr_
 # amounts, so each variant tracks within 1.5x the exact run's ATE.
 IMPL_ATE_FACTOR = 1.5
 IMPL_FRAMES = 30
+PATH_KERNELS = ["segsum", "segsum_bf16", "spd_solve"]
 
 
 def phase_corr_impls(torch, kernels):
@@ -403,14 +464,26 @@ def phase_corr_impls(torch, kernels):
     scene, frames = render_main_scene(IMPL_FRAMES)
     gt = se3.inv(torch.as_tensor(scene.poses[:IMPL_FRAMES])).numpy()
 
-    def run(impl):
+    def run(impl, n_prof=0):
+        """Track the scene; the last n_prof frames under the profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
         cfg = load_config(os.path.join(ROOT, "config", "default.yaml"),
                           overrides={"CORR_IMPL": impl})
         slam = DPVO(cfg, os.path.join(ROOT, "weights", "vonet_synth.npz"), 480, 640)
         t0 = time.perf_counter()
         kernels.reset_launches()
-        for t, image in enumerate(frames):
+        for t, image in enumerate(frames[:IMPL_FRAMES - n_prof]):
             slam(t, image, scene.intrinsics.copy())
+        if n_prof:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for t in range(IMPL_FRAMES - n_prof, IMPL_FRAMES):
+                    slam(t, frames[t], scene.intrinsics.copy())
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t1) * 1e3
+            print(f"CORR_IMPL={impl}: the last {n_prof} frames under the profiler")
+            _print_profile(prof, prof_wall_ms, n_prof)
         poses, _ = slam.terminate()
         torch.cuda.synchronize()
         return slam, poses, dict(kernels.LAUNCHES), time.perf_counter() - t0
@@ -435,10 +508,11 @@ def phase_corr_impls(torch, kernels):
 
     launches, ates = {}, {}
     for impl, ks in IMPL_KERNELS.items():
-        slam, poses, launches[impl], sec = run(impl)
+        # pallas_dma's frames are profiled (kernels C and D's time per frame)
+        slam, poses, launches[impl], sec = run(impl, 5 if impl == "pallas_dma" else 0)
         if not slam.is_initialized or not np.isfinite(poses).all():
             raise AssertionError(f"CORR_IMPL={impl}: no initialization or non-finite poses")
-        missing = [k for k in ks + ["segsum", "spd_solve"] if launches[impl][k] == 0]
+        missing = [k for k in ks + PATH_KERNELS if launches[impl][k] == 0]
         if missing:
             raise AssertionError(f"CORR_IMPL={impl}: kernels not launched: {missing}")
         ates[impl] = ate_rmse(poses[:, :3], gt[:, :3])
@@ -481,6 +555,11 @@ def _print_profile(prof, wall_ms, n):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/frame {e.count / n:7.1f}/frame  "
               f"{e.key[:100]}")
+    for name in ("segsum_kernel", "epilogue_kernel"):  # the kernels this slice redesigned
+        mine = [e for e in evs if name in e.key]
+        if mine:
+            print(f"  {name}: {sum(e.self_device_time_total for e in mine) / 1e3 / n:.4f} "
+                  f"ms/frame in {sum(e.count for e in mine) / n:.1f} launches/frame")
 
 
 def _sync(dst, src):
@@ -672,6 +751,8 @@ def main():
     meta = {  # source, the TPU kernel's pallas_call, the run whose launches count
         "corr": ("dpvo_tpu_torch/csrc/corr.cu", f"{cp_tpu}:949", launches),
         "segsum": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68", launches),
+        "segsum_bf16": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68",
+                        launches),
         "spd_solve": ("dpvo_tpu_torch/csrc/spd_solve.cu", "dpvo_tpu/ba/spd_solve.py:81",
                       launches),
         "corr_window": (cp_src, f"{cp_tpu}:188", impl_launches["pallas"]),

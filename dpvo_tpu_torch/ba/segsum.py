@@ -1,5 +1,5 @@
-"""Sorted segment sum for BA assembly: the CUDA kernel's wrapper
-(``csrc/segsum.cu``) and its plain version.
+"""Sorted segment sum for BA assembly and SoftAgg's grouped sums: the
+CUDA kernel's wrapper (``csrc/segsum.cu``) and its plain version.
 
 Port of ``dpvo_tpu/ba/segsum_pallas.py:segment_sum_sorted``: the
 depth-indexed reduction of ``ba/solver.assemble_normal_eqs``. The JAX
@@ -14,25 +14,32 @@ import torch
 from dpvo_tpu_torch import kernels
 
 
-def segment_sum_plain(payload, kd, order, Md: int):
-    """The one-hot matmul of ``dpvo_tpu/ba/solver.py:220-226`` over the
-    sorted rows (f32): [E, K] -> [Md, K]."""
-    kd_s = kd[order].long()
-    oh = (kd_s[:, None] == torch.arange(Md, device=kd.device)[None, :]).to(torch.float32)
-    return oh.T @ payload[order].to(torch.float32)
+def segment_sum_plain(payload, kd, Md: int):
+    """out[s] = sum of payload[e] over edges with kd[e] == s, s < Md, in
+    f32 (ids outside [0, Md) dropped): [E, K] f32 or bf16 -> [Md, K] f32.
+    ``index_add_`` on the CPU adds the rows one after another in edge
+    order, which is the kernel's order (the stable sort keeps edge order
+    within a segment), so the two give the same bits, at any thread
+    count. On a CUDA tensor ``index_add_`` adds with atomics: the same
+    sums in an order that varies."""
+    kd = kd.long()
+    idx = torch.where((kd < 0) | (kd >= Md), Md, kd)
+    out = torch.zeros((Md + 1, payload.shape[1]), dtype=torch.float32, device=payload.device)
+    return out.index_add_(0, idx, payload.float())[:Md]
 
 
 def segment_sum(payload, kd, order, Md: int):
-    """out[s] = sum of payload[e] over edges with kd[e] == s, s < Md.
+    """out[s] = sum of payload[e] over edges with kd[e] == s, s < Md, in
+    f32; ids outside [0, Md) are dropped.
 
-    payload [E, K] f32; kd [E] dense ids; order [E] a stable argsort of
-    kd (the kernel's contract: kd[order] is non-decreasing). On the card
-    kd and order are int32."""
+    payload [E, K] f32 or bf16; kd [E] ids; order [E] a stable argsort of
+    kd (the kernel's contract: kd[order] is non-decreasing; the plain
+    version does not need it). On the card kd and order are int32."""
     if payload.device.type == "cpu":
-        return segment_sum_plain(payload, kd, order, Md)
+        return segment_sum_plain(payload, kd, Md)
     E, K = payload.shape
-    if payload.dtype != torch.float32:
-        raise ValueError(f"segment_sum: payload must be f32, got {payload.dtype}")
+    if payload.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"segment_sum: payload must be f32 or bf16, got {payload.dtype}")
     if kd.dtype != torch.int32 or order.dtype != torch.int32:
         raise ValueError(f"segment_sum: kd/order must be int32, got {kd.dtype}/{order.dtype}")
     if kd.shape != (E,) or order.shape != (E,):
@@ -40,8 +47,9 @@ def segment_sum(payload, kd, order, Md: int):
     kernels.require_cuda("segment_sum", payload, kd, order)
     lib = kernels.load()
     out = torch.empty((Md, K), dtype=torch.float32, device=payload.device)
+    bf16 = payload.dtype == torch.bfloat16
     rc = lib.dpvo_segment_sum(payload.data_ptr(), kd.data_ptr(), order.data_ptr(),
-                              out.data_ptr(), E, K, Md, kernels.stream_ptr(payload))
+                              out.data_ptr(), E, K, Md, int(bf16), kernels.stream_ptr(payload))
     kernels.check("segment_sum", rc)
-    kernels.LAUNCHES["segsum"] += 1
+    kernels.LAUNCHES["segsum_bf16" if bf16 else "segsum"] += 1
     return out

@@ -25,9 +25,11 @@
 // the y-bilinear; each product and each running sum rounded to bf16, as
 // the TPU's bf16 scratch tmp_r is) and 17 column taps (the column one-hot,
 // 8-alignment remainder included, merged with the x-bilinear and the pixel
-// mask; f32 accumulation), giving [E, 9, 168] bf16. Its arithmetic avoids
-// contraction into FMAs (__fmul_rn / __fadd_rn), so it matches the plain
-// version bit for bit.
+// mask; f32 accumulation), giving [E, 9, 168] bf16. Only 2 + 2 of those
+// taps carry weight, and the kernel evaluates only those, with the same
+// rounding points; its arithmetic avoids contraction into FMAs (__fmul_rn /
+// __fadd_rn), so it matches the plain version (all 26 taps) value for
+// value wherever s is finite (the dead taps add +-0).
 //
 // What bounds them on an H100. A, B and C: per edge and level 9 x N x C
 // MACs (N = 64, 448, 384 positions; C = 128), 11 to 77 GFLOP per call at
@@ -35,9 +37,10 @@
 // microseconds, below the bytes. The bytes are the output (E x 9 x N bf16:
 // 0.6 GB per call for B), the frames the edges touch and the patch rows;
 // so memory bounds them (measured: 1.1 ms per call against 0.07-0.23 ms;
-// the loads of one edge's window rows are short and scattered). D: it
-// reads C's output (0.26 GB per level) and writes 40% of that, so its
-// bound is memory, but the design below is bound by its instructions.
+// the loads of one edge's window rows are short and scattered). D: its
+// function needs half of C's output (0.28 GB per level at 40960 rows)
+// and writes 0.12 GB, so memory bounds it: per pixel the 384 live bytes of
+// its 768-byte row of s, five per-pixel inputs and 336 output bytes.
 //
 // Design of A, B and C: one 128-thread block (4 warps) per edge. The
 // dots run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
@@ -49,16 +52,14 @@
 // order below, each lane reads 16 bytes per 32 channels. One tile is 8
 // positions x 16 rows; a warp walks tiles. For A only row p of a tile is
 // kept (pixel p's own window), 9x more tensor-core work than needed,
-// which still costs less than the loads. D: one 256-thread block per
-// edge; the row stage goes to shared memory, then each thread sums 17
-// column taps for its outputs. D evaluates all 9 + 17 taps, as the TPU
-// kernel does, though only 2 + 2 carry weight: it is bound by those
-// instructions, not by its bytes.
+// which still costs less than the loads. D: one warp per (edge, pixel),
+// eight per block, no block barrier; 16-byte loads of the two live rows,
+// the row stage in registers, the shift by dxw by shuffles, 16-byte stores
+// (see epilogue_kernel).
 //
 // Later work (not needed for correctness): stage the superwindow in
-// shared memory with TMA and share it between the warps, fuse D into C so
-// the raw superwindow never reaches device memory, and let D evaluate only
-// its live taps where the input is finite.
+// shared memory with TMA and share it between the warps, and fuse D into C
+// so the raw superwindow never reaches device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -199,8 +200,8 @@ superwindow_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __
 }
 
 // kernel D
-constexpr int kCS3 = 24, kSW3 = 16 * kCS3, kW7 = 7 * kCS3, kTmpW = kW7 + 24;
-constexpr int kEpiThreads = 256;
+constexpr int kCS3 = 24, kSW3 = 16 * kCS3, kW7 = 7 * kCS3;
+constexpr int kEpiWarps = 8;  // pixels per block, one warp each
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -212,38 +213,116 @@ __device__ __forceinline__ float merged_tap(int k, int a, float f) {
                    __fmul_rn(k == a - 1 ? 1.f : 0.f, f));
 }
 
-__global__ void __launch_bounds__(kEpiThreads)
+// the 8 bf16 values of a 16-byte vector, as f32 (exact)
+__device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// the column stage of 8 outputs k0 + j from the 16 row-stage values t[i] =
+// tmp[k0 + 8q + i], where dxw = 8q + R: the live taps b = dxw (t[j + R])
+// and b = dxw + 1 (t[j + R + 1]), in that order, as the f32 sum over all
+// 17 taps adds them; the dead taps would add +-0
+template <int R>
+__device__ __forceinline__ uint4 column_taps(const float (&t)[16], float w0, float w1, bool l0,
+                                             bool l1) {
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float acc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * i + h;
+      acc[h] = 0.f;
+      if (l0) acc[h] = __fadd_rn(acc[h], __fmul_rn(w0, t[j + R]));
+      if (l1) acc[h] = __fadd_rn(acc[h], __fmul_rn(w1, t[j + R + 1]));
+    }
+    const __nv_bfloat162 b = __floats2bfloat162_rn(acc[0], acc[1]);
+    o[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// One warp per (edge, pixel). Of the 9 row taps (a) and 17 column taps (b)
+// that _make_epi_kernel evaluates, merged_tap is nonzero only at a = dy,
+// dy + 1 and b = dxw, dxw + 1; the others add +-0 to a running sum, which
+// for finite s changes no value (at most the sign of a zero). So a lane L <
+// 21 reads chunk L (8 values, 16 bytes) of the two live rows of s: the
+// pixel's 384 live bytes of 768. It computes row-stage values 8L .. 8L + 7
+// with the same bf16 rounds; lanes 21-23 stand for the stage's zero columns
+// 168-191. The column stage takes the two stage chunks that its 8 outputs
+// reach by shuffles and writes them as one 16-byte store.
+__global__ void __launch_bounds__(32 * kEpiWarps)
 epilogue_kernel(const __nv_bfloat16* __restrict__ s, const int* __restrict__ dy,
                 const int* __restrict__ dxw, const float* __restrict__ dyf,
                 const float* __restrict__ dxf, const float* __restrict__ vf,
-                __nv_bfloat16* __restrict__ out) {
-  __shared__ float tmp[kP2][kTmpW];
-  const int e = blockIdx.x;
-  const __nv_bfloat16* se = s + (size_t)e * kP2 * kSW3;
-  for (int i = threadIdx.x; i < kP2 * kTmpW; i += kEpiThreads) {
-    const int p = i / kTmpW, m = i % kTmpW;
-    float acc = 0.f;
-    if (m < kW7) {
-      const int d = dy[e * kP2 + p];
-      const float f = dyf[e * kP2 + p];
-      for (int a = 0; a < 9; ++a) {
-        const float term = bf16_round(__fmul_rn(merged_tap(d, a, f),
-                                                __bfloat162float(se[p * kSW3 + a * kCS3 + m])));
-        acc = bf16_round(__fadd_rn(acc, term));
+                __nv_bfloat16* __restrict__ out, int n_pix) {
+  const int lane = threadIdx.x & 31;
+  const int P = blockIdx.x * kEpiWarps + (threadIdx.x >> 5);
+  if (P >= n_pix) return;
+  const int d = dy[P], c = dxw[P];
+  const float fy = dyf[P], fx = dxf[P], v = vf[P];
+  // row stage
+  const bool la0 = d >= 0 && d < 9, la1 = d + 1 >= 0 && d + 1 < 9;
+  const float ta0 = merged_tap(d, d, fy), ta1 = merged_tap(d, d + 1, fy);
+  uint32_t tw[4] = {0u, 0u, 0u, 0u};  // row-stage chunk `lane`, bf16 pairs
+  if (lane < kW7 / 8) {
+    const __nv_bfloat16* sp = s + (size_t)P * kSW3 + 8 * lane;
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    const uint4 r0 = la0 ? *reinterpret_cast<const uint4*>(sp + d * kCS3) : zero;
+    const uint4 r1 = la1 ? *reinterpret_cast<const uint4*>(sp + (d + 1) * kCS3) : zero;
+    float x0[8], x1[8];
+    unpack8(r0, x0);
+    unpack8(r1, x1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float t[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * i + h;
+        float acc = 0.f;
+        if (la0) acc = bf16_round(__fadd_rn(acc, bf16_round(__fmul_rn(ta0, x0[j]))));
+        if (la1) acc = bf16_round(__fadd_rn(acc, bf16_round(__fmul_rn(ta1, x1[j]))));
+        t[h] = acc;
       }
+      // both bf16-exact: their high halves are the bf16 values
+      tw[i] = (__float_as_uint(t[0]) >> 16) | (__float_as_uint(t[1]) & 0xffff0000u);
     }
-    tmp[p][m] = acc;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kP2 * kW7; i += kEpiThreads) {
-    const int p = i / kW7, k = i % kW7;
-    const int d = dxw[e * kP2 + p];
-    const float f = dxf[e * kP2 + p], v = vf[e * kP2 + p];
-    float acc = 0.f;
-    for (int b = 0; b < 17; ++b)
-      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(merged_tap(d, b, f), v), tmp[p][k + b]));
-    out[((size_t)e * kP2 + p) * kW7 + k] = __float2bfloat16_rn(acc);
+  // column stage: outputs 8 lane .. 8 lane + 7 read stage chunks lane + q
+  // and lane + q + 1 (dxw = 8q + R, q = floor(dxw / 8))
+  const int q = c >> 3, R = c & 7;
+  const bool l0 = c >= 0 && c < 17, l1 = c + 1 >= 0 && c + 1 < 17;
+  const float w0 = __fmul_rn(merged_tap(c, c, fx), v);
+  const float w1 = __fmul_rn(merged_tap(c, c + 1, fx), v);
+  float t[16];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int src = (lane + q + h) & 31;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t w = __shfl_sync(0xffffffffu, tw[i], src);
+      t[8 * h + 2 * i] = __uint_as_float(w << 16);
+      t[8 * h + 2 * i + 1] = __uint_as_float(w & 0xffff0000u);
+    }
   }
+  if (lane >= kW7 / 8) return;
+  uint4 o;
+  switch (R) {  // the same for the whole warp
+    case 0: o = column_taps<0>(t, w0, w1, l0, l1); break;
+    case 1: o = column_taps<1>(t, w0, w1, l0, l1); break;
+    case 2: o = column_taps<2>(t, w0, w1, l0, l1); break;
+    case 3: o = column_taps<3>(t, w0, w1, l0, l1); break;
+    case 4: o = column_taps<4>(t, w0, w1, l0, l1); break;
+    case 5: o = column_taps<5>(t, w0, w1, l0, l1); break;
+    case 6: o = column_taps<6>(t, w0, w1, l0, l1); break;
+    default: o = column_taps<7>(t, w0, w1, l0, l1); break;
+  }
+  *reinterpret_cast<uint4*>(out + (size_t)P * kW7 + 8 * lane) = o;
 }
 
 // launches kernel<KS> for the channel counts the port meets (FDIM 32 to 256)
@@ -315,9 +394,11 @@ extern "C" int dpvo_corr_superwindow_v3(const void* f1, const void* fmap, const 
 extern "C" int dpvo_corr_epilogue_v3(const void* s, const void* dy, const void* dxw,
                                      const void* dyf, const void* dxf, const void* vf, void* out,
                                      int E, void* stream) {
-  if (E > 0)
-    epilogue_kernel<<<E, kEpiThreads, 0, (cudaStream_t)stream>>>(
+  const int n_pix = E * kP2;
+  if (n_pix > 0)
+    epilogue_kernel<<<(n_pix + kEpiWarps - 1) / kEpiWarps, 32 * kEpiWarps, 0,
+                      (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)s, (const int*)dy, (const int*)dxw, (const float*)dyf,
-        (const float*)dxf, (const float*)vf, (__nv_bfloat16*)out);
+        (const float*)dxf, (const float*)vf, (__nv_bfloat16*)out, n_pix);
   return (int)cudaGetLastError();
 }

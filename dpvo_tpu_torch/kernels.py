@@ -31,8 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"corr": 0, "segsum": 0, "spd_solve": 0, "corr_window": 0, "corr_sw": 0,
-            "corr_v3": 0, "corr_v3_epi": 0}
+LAUNCHES = {"corr": 0, "segsum": 0, "segsum_bf16": 0, "spd_solve": 0, "corr_window": 0,
+            "corr_sw": 0, "corr_v3": 0, "corr_v3_epi": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,8 +47,8 @@ _SIGNATURES = {
     "dpvo_corr_superwindow_v3": [_VP] * 7 + [_I] * 5 + [_VP],
     # s, dy, dxw, dyf, dxf, vf, out, E, stream
     "dpvo_corr_epilogue_v3": [_VP] * 7 + [_I, _VP],
-    # payload, kd, order, out, E, K, Md, stream
-    "dpvo_segment_sum": [_VP] * 4 + [_I] * 3 + [_VP],
+    # payload, kd, order, out, E, K, Md, is_bf16, stream
+    "dpvo_segment_sum": [_VP] * 4 + [_I] * 4 + [_VP],
     # S, y, x, n, stream
     "dpvo_spd_solve": [_VP] * 3 + [_I, _VP],
 }

@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dpvo_tpu_torch.ba.segsum import segment_sum
+from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
 
 GRAD_CLIP = 0.01
 
@@ -66,17 +66,16 @@ class GatedResidual(nn.Module):
 
 def grouped_sum(x, seg, num_segments: int, order=None):
     """out[s] = sum of the rows x[e] with seg[e] == s, s < num_segments, in
-    f32 (rows of a larger seg are dropped). On the card through the sorted
-    segment-sum kernel (``ba/segsum.py``): a fixed summation order, so the
-    card gives the same bits on every run, where ``index_add_`` sums with
-    float atomics in an order that varies. On the CPU ``index_add_`` adds
-    the rows one after another, in O(E * K), and is as reproducible.
-    order: a stable argsort of seg for the kernel, computed here when not
-    given."""
-    x = x.to(torch.float32)
+    f32 (rows of a larger seg are dropped); x f32 or bf16, whose values
+    convert to f32 exactly. On the card through the sorted segment-sum
+    kernel (``ba/segsum.py``), which reads a bf16 x as it is: a fixed
+    summation order, so the card gives the same bits on every run, where
+    ``index_add_`` sums with float atomics in an order that varies. On the
+    CPU its plain version, ``index_add_``, which there adds the rows one
+    after another: the same bits as the kernel. order: a stable argsort of
+    seg for the kernel, computed here when not given."""
     if x.device.type == "cpu":
-        out = torch.zeros((num_segments + 1, x.shape[1]), dtype=torch.float32)
-        return out.index_add_(0, seg.long().clamp(max=num_segments), x)[:num_segments]
+        return segment_sum_plain(x, seg, num_segments)
     if order is None:
         order = torch.argsort(seg, stable=True).to(seg.dtype)
     return segment_sum(x.contiguous(), seg, order, num_segments)

@@ -42,6 +42,49 @@ def test_segment_sum_matches_pallas_interpret(K, Md):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _sequential_sums(payload, kd, Md):
+    """The kernel's function, row after row in edge order (np.add.at is
+    unbuffered): f32 sums, ids outside [0, Md) dropped."""
+    keep = (kd >= 0) & (kd < Md)
+    out = np.zeros((Md, payload.shape[1]), np.float32)
+    np.add.at(out, kd[keep], payload[keep].astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_segment_sum_plain_is_sequential(threads):
+    """The plain version gives the bits of the sequential sorted-order sums
+    (the kernel's order) with any torch thread count, on a long run, empty
+    segments and ids outside [0, Md), which are dropped."""
+    rng = np.random.default_rng(11)
+    E, K, Md = 4000, 98, 300
+    kd = rng.integers(-3, Md + 5, E)
+    kd[rng.uniform(size=E) < 0.15] = 7  # a run of ~600 rows
+    kd[(kd > 100) & (kd < 120)] = 121   # empty segments
+    payload = (rng.standard_normal((E, K)) * rng.uniform(0.01, 100, (E, 1))).astype(np.float32)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = segment_sum(_t(payload), _t(kd, torch.int32), None, Md)
+    finally:
+        torch.set_num_threads(before)
+    assert got.dtype == torch.float32 and got.shape == (Md, K)
+    assert np.array_equal(got.numpy(), _sequential_sums(payload, kd, Md))
+    assert (got[101:120] == 0).all()
+
+
+def test_segment_sum_plain_bf16_equals_its_f32_cast():
+    """A bf16 payload (SoftAgg's) sums as its f32 cast does, bit for bit: a
+    bf16 value converts to f32 exactly."""
+    rng = np.random.default_rng(12)
+    E, K, Md = 3000, 128, 200
+    kd = _t(rng.integers(0, Md + 3, E), torch.int32)
+    payload = torch.as_tensor(rng.standard_normal((E, K)).astype(np.float32)).to(torch.bfloat16)
+    got = segment_sum(payload, kd, None, Md)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, segment_sum(payload.float(), kd, None, Md))
+
+
 def _spd_system(n, seed):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((n, n))

@@ -58,18 +58,37 @@ def test_corr_kernel_matches_plain(dev, dtype, C):
     assert ((got - want).abs() <= tol).all()
 
 
-def test_segsum_kernel_matches_plain(dev):
+@pytest.mark.parametrize("dtype,K", [(torch.float32, 98), (torch.bfloat16, 768),
+                                     (torch.float32, 600), (torch.float32, 33),
+                                     (torch.bfloat16, 20), (torch.bfloat16, 9)])
+def test_segsum_kernel_matches_plain(dev, dtype, K):
+    """The kernel adds each segment's rows in sorted order with plain f32
+    adds, as the plain version does on the CPU (index_add_, row after row):
+    the same bits, for an f32 and a bf16 payload, with a 500-row run, empty
+    segments and ids outside [0, Md), which are dropped. The path's rows
+    (BA f32 K = 98: 8-byte loads; SoftAgg bf16 K = 768: 16-byte loads), two
+    column passes (f32 K = 600) and 4-, 8- and 2-byte loads (K = 33 f32, 20
+    and 9 bf16)."""
+    from dpvo_tpu_torch import kernels
     from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
 
-    g = torch.Generator().manual_seed(1)
-    E, K, Md = 3000, 98, 200
-    kd = torch.cat([torch.arange(Md), torch.randint(0, Md, (E - Md,), generator=g)])
-    kd = kd[torch.randperm(E, generator=g)].to(torch.int32)
+    g = torch.Generator().manual_seed(K)
+    E, Md = 3000, 200
+    kd = torch.cat([torch.arange(Md), torch.full((500,), 17),
+                    torch.randint(-2, Md + 3, (E - Md - 500,), generator=g)])
+    kd = kd[torch.randperm(E, generator=g)]
+    kd[(kd > 50) & (kd < 60)] = 60  # empty segments 51-59
+    kd = kd.to(torch.int32)
     order = torch.argsort(kd, stable=True).to(torch.int32)
-    payload = torch.randn(E, K, generator=g)
-    want = segment_sum_plain(payload, kd, order, Md)
+    payload = (torch.randn(E, K, generator=g) * torch.rand(E, 1, generator=g) * 100).to(dtype)
+    want = segment_sum_plain(payload, kd, Md)
+    name = "segsum_bf16" if dtype == torch.bfloat16 else "segsum"
+    before = kernels.LAUNCHES[name]
     got = segment_sum(payload.to(dev), kd.to(dev), order.to(dev), Md).cpu()
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert (got[51:60] == 0).all()
 
 
 @pytest.mark.parametrize("n", [48, 96])
@@ -163,6 +182,26 @@ def test_corr_epilogue_kernel_matches_plain_bitwise(dev):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["corr_v3_epi"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dy,dxw", [(0, 0), (0, 15), (7, 0), (7, 15)])
+def test_corr_epilogue_kernel_boundary_cases(dev, dy, dxw):
+    """Kernel D at the ends of its window offsets, with bilinear fractions
+    0 and 1 and masked pixels: the kernel evaluates only the live taps,
+    which gives the plain version's values (torch.equal)."""
+    from dpvo_tpu_torch.ops import corr_pallas as cp
+
+    g = torch.Generator().manual_seed(10 * dy + dxw)
+    E = 64
+    s = (8 * torch.randn(E, 9, 384, generator=g)).to(torch.bfloat16)
+    full = lambda v, dtype=torch.float32: torch.full((E, 9), v, dtype=dtype)
+    frac = torch.tensor([0.0, 1.0, 0.5, 0.25])[torch.randint(0, 4, (E, 9), generator=g)]
+    args = (s, full(dy, torch.int32), full(dxw, torch.int32), frac, frac.flip(0),
+            (torch.rand(E, 9, generator=g) > 0.3).float())
+    want = cp.epilogue_v3(*args)
+    got = cp.epilogue_v3(*(t.to(dev) for t in args)).cpu()
+    assert torch.equal(got, want)
+    assert (want[args[5] == 0] == 0).all()  # vf = 0 pixels are zero
 
 
 def test_corr_clamp_mode_matches_plain(dev):

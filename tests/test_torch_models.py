@@ -144,16 +144,21 @@ def test_segment_softmax_matches():
 
 @pytest.mark.parametrize("ns", [9, 2560])
 def test_grouped_sum_matches_segment_sum(ns):
-    """SoftAgg's grouped sum on the CPU (index_add_, O(E*K)) against the
-    segment-sum kernel's plain version, the function it takes on the card;
-    rows of seg >= ns are dropped. f32 sums in two orders."""
+    """SoftAgg's grouped sum on the CPU is the segment-sum kernel's plain
+    version, the function it takes on the card: f32 sums row after row in
+    edge order (the kernel's sorted order), the same bits for an f32 and a
+    bf16 payload; rows of seg >= ns are dropped."""
     rng = np.random.default_rng(6)
     x = torch.as_tensor(rng.standard_normal((3000, 16)).astype(np.float32))
     seg = torch.as_tensor(rng.integers(0, ns + 1, 3000).astype(np.int32))
     got = grouped_sum(x, seg, ns)
-    want = segment_sum_plain(x, seg, torch.argsort(seg, stable=True), ns)
+    want = np.zeros((ns, 16), np.float32)
+    keep = seg.numpy() < ns
+    np.add.at(want, seg.numpy()[keep], x.numpy()[keep])
     assert got.dtype == torch.float32 and got.shape == (ns, 16)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(got.numpy(), want)
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(grouped_sum(xb, seg, ns), segment_sum_plain(xb.float(), seg, ns))
 
 
 def test_npz_tree_equals_load_params():

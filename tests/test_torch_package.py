@@ -89,6 +89,7 @@ def _requests(device):
         "corr": lambda: corr_features(t(4, 8, 3, 3), t(2, 8, 8, 8), t(2, 2, 2, 8),
                                       t(5, 3, 3, 2), i(5), i(5), t(5, dtype=torch.bool)),
         "segsum": lambda: segment_sum(t(6, 3), i(6), i(6), 4),
+        "segsum_bf16": lambda: segment_sum(t(6, 8, dtype=bf), i(6), i(6), 4),
         "spd_solve": lambda: spd_solve(torch.eye(4, device=device), t(4)),
         "corr_window": lambda: cp.corr_window(t(5, 9, 32, dtype=bf), t(2, 8, 8, 32, dtype=bf),
                                               i(5), t(5, dtype=torch.bool), i(5, 9), i(5, 9)),
@@ -101,7 +102,8 @@ def _requests(device):
     }
 
 
-KERNELS = ["corr", "segsum", "spd_solve", "corr_window", "corr_sw", "corr_v3", "corr_v3_epi"]
+KERNELS = ["corr", "segsum", "segsum_bf16", "spd_solve", "corr_window", "corr_sw", "corr_v3",
+           "corr_v3_epi"]
 
 
 @pytest.mark.parametrize("name", KERNELS)
