@@ -10,8 +10,10 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the default configuration's steady state (correlation, all
    variants: 37344 live edges in a 40960-row bucket, 5% of them spread 3-6
-   px so that corr.cu takes both its branches, whose counts are printed;
-   kernel D also at the ends of its window offsets; segment sum: BA's f32
+   px so that corr.cu and kernel A take both their branches, whose counts
+   are printed; kernel C+D on Gaussian features within the raw dots' bf16
+   ulp and on integer features, also at the ends of its window offsets,
+   torch.equal; segment sum: BA's f32
    [49152, 98] into 2560 rows and SoftAgg's two bf16 [40960, 768] sums, bit
    for bit against the plain version on the CPU; SPD solve: n = 96, forward
    and backward). Print the error and the median time of the kernel, the plain
@@ -30,8 +32,9 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
 4. The same path for 30 frames once per CORR_IMPL (xla, pallas, pallas_sw,
    pallas_dma, pallas_fused), counters zeroed before each run: each run's
    correlation kernels must have run, and its ATE stay within
-   IMPL_ATE_FACTOR of the exact (xla) run's; pallas_dma's last 5 frames run
-   under the profiler. The xla run is made twice and
+   IMPL_ATE_FACTOR of the exact (xla) run's; pallas's and pallas_dma's last
+   5 frames run under the profiler, and the pallas run counts the live
+   items that took each of kernel A's branches. The xla run is made twice and
    the two trajectories must be bit for bit equal; the second counts how
    many live edges took each of corr.cu's branches.
 5. Small-path parity: the tiny configuration of the tests
@@ -296,10 +299,10 @@ def segsum_kernels(torch, g):
 
 
 def corr_variant_kernels(torch, args, nframes, nrows):
-    """Kernels A-D of the CORR_IMPL variants (ops/corr_pallas.py) on the
-    correlation inputs above, each against its plain version. A kernel's
-    time is that of one correlation call: its two launches, one per
-    pyramid level (for D, on C's output)."""
+    """Kernels A, B and C+D of the CORR_IMPL variants (ops/corr_pallas.py)
+    on the correlation inputs above, each against its plain version. A
+    kernel's time is that of one correlation call: its two launches, one
+    per pyramid level."""
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
     gmap, fmap1, fmap2, coords, ii1, jj1, valid = args
@@ -313,15 +316,19 @@ def corr_variant_kernels(torch, args, nframes, nrows):
         win, _ = cp.window_inputs(c, vs, H, W, 3)
         sw, _ = cp.sw_inputs(c, vs, H, W, 3)
         v3, epi = cp.v3_inputs(c, vs, H, W, 3)
-        levels.append(dict(fmap=fmap, HW=H * W, win=win, sw=sw, v3=v3, epi=epi))
+        levels.append(dict(fmap=fmap, HW=H * W, win=win, sw=sw, v3=v3 + epi))
+    fits = [cp.window_union(*lv["win"])[-1][vs] for lv in levels]
+    print(f"corr_window: live (edge, level) items by branch, kernel's rule: union grid "
+          f"{int(fits[0].sum())} + {int(fits[1].sum())}, per-pixel {int((~fits[0]).sum())} + "
+          f"{int((~fits[1]).sum())} (level 1 + level 2)")
+    if all(f.all() for f in fits) or not any(f.any() for f in fits):
+        raise AssertionError("the correlation inputs do not take both of kernel A's branches")
     feat_bytes = nframes * sum(lv["HW"] for lv in levels) * C * 2 + nrows * C * 9 * 2
     idx_bytes = E_cap * (4 + 1)  # jj, valid
     out = {}
     tile = {"corr_window": (cp.corr_window, cp.corr_window_plain, "win", 64, {}),
             "corr_sw": (cp.superwindow_sw, cp.superwindow_plain, "sw", 448,
-                        dict(R=cp.RS, Cw=cp.CS)),
-            "corr_v3": (cp.superwindow_v3, cp.superwindow_plain, "v3", 384,
-                        dict(R=cp.RS3, Cw=cp.CS3))}
+                        dict(R=cp.RS, Cw=cp.CS))}
     for name, (kern, plain, key, npos, kw) in tile.items():
         run = lambda fn, **k: [fn(f1, lv["fmap"], jj, vs, *lv[key], **k) for lv in levels]
         got, want = run(kern), run(plain, **kw)
@@ -339,40 +346,78 @@ def corr_variant_kernels(torch, args, nframes, nrows):
                          plain_ms=cuda_ms(lambda: run(plain, **kw), 2, warmup=1),
                          library_ms=None,
                          bound=bound(nbytes, 2 * E * 9 * npos * C * 2, PEAK_BF16))
-        if name == "corr_v3":
-            s_levels = got
-    epi = lambda fn: [fn(sl, *lv["epi"]) for sl, lv in zip(s_levels, levels)]
-    got, want = epi(cp.epilogue_v3), epi(cp.epilogue_v3_plain)
-    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-    print(f"corr_v3_epi: max_abs_err {err:.6g} (torch.equal: the same rounding points)")
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError("corr_v3_epi kernel disagrees with its plain version")
-    # the ends of the window offsets, bilinear fractions 0 and 1, masked pixels
-    for dy, dxw in ((0, 0), (0, 15), (7, 0), (7, 15)):
-        frac = torch.tensor([0.0, 1.0], device=s_levels[0].device)[
-            torch.randint(0, 2, (E_cap, 9), device=s_levels[0].device)]
-        full = lambda v: torch.full((E_cap, 9), v, dtype=torch.int32, device=frac.device)
-        case = (s_levels[0], full(dy), full(dxw), frac, 1 - frac,
-                (torch.rand((E_cap, 9), device=frac.device) > 0.3).float())
-        if not torch.equal(cp.epilogue_v3(*case), cp.epilogue_v3_plain(*case)):
-            raise AssertionError(f"corr_v3_epi disagrees with its plain version at dy {dy}, "
-                                 f"dxw {dxw}")
-    print("corr_v3_epi: equal at dy 0 / 7 x dxw 0 / 15, fractions 0 and 1, masked pixels")
-    # per level: the live span of s (rows dy, dy + 1: 192 of 384 values; the
-    # function depends on no other), dy/dxw/dyf/dxf/vf read, the [E, 9, 168]
-    # output written; per row-stage value 2 live taps (product, sum), per
-    # output 2 (two products, sum)
-    nbytes = 2 * E_cap * 9 * (192 * 2 + 5 * 4 + 168 * 2)
-    old = bound(2 * E_cap * 9 * (384 * 2 + 5 * 4 + 168 * 2),
-                2 * E_cap * 9 * 168 * 2 * (17 + 9), PEAK_F32)
-    new = bound(nbytes, 2 * E_cap * 9 * 168 * (4 + 6), PEAK_F32)
-    print(f"corr_v3_epi: bound {new[0]:.5f} ms ({new[1]}; counting all 768 bytes of s and "
-          f"26 taps: {old[0]:.5f})")
-    out["corr_v3_epi"] = dict(max_abs_err=err, ms=cuda_ms(lambda: epi(cp.epilogue_v3), 20),
-                              device_ms=device_ms(lambda: epi(cp.epilogue_v3), 20),
-                              plain_ms=cuda_ms(lambda: epi(cp.epilogue_v3_plain), 3),
-                              library_ms=None, bound=new)
+    out["corr_v3_fused"] = v3_fused_kernel(torch, cp, f1, jj, vs, levels, feat_bytes, idx_bytes)
     return out
+
+
+def v3_fused_kernel(torch, cp, f1, jj, vs, levels, feat_bytes, idx_bytes):
+    """Kernel C+D against its plain version (superwindow_plain, then
+    epilogue_v3_plain, sliced and padded): torch.equal on integer features
+    (every f32 dot exact, so the raw dots agree and the epilogue rounds
+    where its plain version rounds) at the correlation inputs' geometry and
+    at the ends of the window offsets; within the raw dots' bf16 ulp,
+    carried through the epilogue, on the Gaussian features."""
+    E_cap, C = f1.shape[0], f1.shape[2]
+    E = int(vs.sum())
+    dev = f1.device
+    g = torch.Generator(device=dev).manual_seed(1)
+    fused = lambda fn, f, lvs: [fn(f, lv["fmap"], jj, vs, *lv["v3"]) for lv in lvs]
+    got, want = fused(cp.corr_v3_fused, f1, levels), fused(cp.corr_v3_fused_plain, f1, levels)
+    # the plain epilogue on the magnitudes of the plain raw dots bounds how
+    # far one bf16 ulp of each raw dot (and a flipped rounding of the row
+    # stage) moves an output
+    def envelope(lv):
+        syc, sxc, *epi = lv["v3"]
+        s = cp.superwindow_plain(f1, lv["fmap"], jj, vs, syc, sxc, cp.RS3, cp.CS3).abs()
+        wide = cp.epilogue_v3_plain(s, *epi).reshape(E_cap, 9, 7, cp.CS3)[..., :7]
+        return torch.nn.functional.pad(wide, (0, 1, 0, 1)).reshape(E_cap, 9, 64).float()
+
+    env = [envelope(lv) for lv in levels]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    bad = sum(int(((a.float() - b.float()).abs() > 2.0 ** -6 * m + 2.0 ** -7 * b.float().abs()
+                   + 2e-3).sum()) for a, b, m in zip(got, want, env))
+    print(f"corr_v3_fused: Gaussian features: max_abs_err {err:.6g}, equal values "
+          f"{sum(int((a == b).sum()) for a, b in zip(got, want))} of "
+          f"{sum(a.numel() for a in got)}")
+    if bad:
+        raise AssertionError(f"corr_v3_fused disagrees with its plain version ({bad} values)")
+    ints = lambda t: torch.randint(-3, 4, t.shape, generator=g, device=dev).to(torch.bfloat16)
+    f1i = ints(f1)
+    lvi = [dict(lv, fmap=ints(lv["fmap"])) for lv in levels]
+    if not all(torch.equal(a, b) for a, b in zip(fused(cp.corr_v3_fused, f1i, lvi),
+                                                  fused(cp.corr_v3_fused_plain, f1i, lvi))):
+        raise AssertionError("corr_v3_fused disagrees with its plain version on exact dots")
+    # the ends of the window offsets, bilinear fractions 0 and 1, masked pixels
+    syc, sxc, _, _, _, _, vf = lvi[0]["v3"]
+    for dy, dxw in ((0, 0), (0, 15), (7, 0), (7, 15)):
+        frac = torch.tensor([0.0, 1.0], device=dev)[
+            torch.randint(0, 2, (E_cap, 9), generator=g, device=dev)]
+        full = lambda v: torch.full((E_cap, 9), v, dtype=torch.int32, device=dev)
+        case = (f1i, lvi[0]["fmap"], jj, vs, syc, sxc, full(dy), full(dxw), frac, 1 - frac,
+                vf * (torch.rand((E_cap, 9), generator=g, device=dev) > 0.3).float())
+        if not torch.equal(cp.corr_v3_fused(*case), cp.corr_v3_fused_plain(*case)):
+            raise AssertionError(f"corr_v3_fused disagrees with its plain version at dy {dy}, "
+                                 f"dxw {dxw}")
+    print("corr_v3_fused: torch.equal to its plain version on integer features, at the "
+          "correlation inputs' windows and at dy 0 / 7 x dxw 0 / 15 with fractions 0 and 1 "
+          "and masked pixels")
+    # per level: syc/sxc [E] and the five per-pixel inputs read, the
+    # [E, 9, 64] bf16 output written; 2 x 9 x 64 x C operations per edge.
+    # Beside it the bounds of the two kernels it replaces: C (the raw 16 x 24
+    # superwindow written) and D (its live rows read back, [E, 9, 168]
+    # written)
+    per_level = idx_bytes + E_cap * 2 * 4 + E_cap * 9 * 5 * 4 + E_cap * 9 * 64 * 2
+    new = bound(feat_bytes + 2 * per_level, 2 * 2 * E * 9 * 64 * C, PEAK_BF16)
+    old_c = bound(feat_bytes + 2 * (idx_bytes + E_cap * 2 * 4 + E_cap * 9 * 384 * 2),
+                  2 * E * 9 * 384 * C * 2, PEAK_BF16)
+    old_d = bound(2 * E_cap * 9 * (192 * 2 + 5 * 4 + 168 * 2), 2 * E_cap * 9 * 168 * (4 + 6),
+                  PEAK_F32)
+    print(f"corr_v3_fused: bound {new[0]:.5f} ms ({new[1]}); unfused C {old_c[0]:.5f} + D "
+          f"{old_d[0]:.5f} = {old_c[0] + old_d[0]:.5f} ms")
+    return dict(max_abs_err=err, ms=cuda_ms(lambda: fused(cp.corr_v3_fused, f1, levels), 20),
+                device_ms=device_ms(lambda: fused(cp.corr_v3_fused, f1, levels), 20),
+                plain_ms=cuda_ms(lambda: fused(cp.corr_v3_fused_plain, f1, levels), 2, warmup=1),
+                library_ms=None, bound=new)
 
 
 def render_main_scene(n_frames):
@@ -438,7 +483,8 @@ def phase_main_path(torch, kernels):
 # default configuration adds: BA's f32 segment sum and pose solve, SoftAgg's
 # bf16 segment sums
 IMPL_KERNELS = {"xla": ["corr"], "pallas": ["corr_window"], "pallas_sw": ["corr_sw"],
-                "pallas_dma": ["corr_v3", "corr_v3_epi"], "pallas_fused": ["corr"]}
+                "pallas_dma": ["corr_v3_fused"], "pallas_fused": ["corr"]}
+IMPL_PROFILED = ("pallas", "pallas_dma")  # their last 5 frames run under the profiler
 # Bound on each variant's ATE, written before the first card run: the variants
 # differ from the exact windows only in bf16 rounding points and, for the
 # superwindows, in windows clamped beyond +-3 px of the patch centre, which real
@@ -464,8 +510,9 @@ def phase_corr_impls(torch, kernels):
     scene, frames = render_main_scene(IMPL_FRAMES)
     gt = se3.inv(torch.as_tensor(scene.poses[:IMPL_FRAMES])).numpy()
 
-    def run(impl, n_prof=0):
-        """Track the scene; the last n_prof frames under the profiler."""
+    def run(impl, n_prof=0, before_prof=None):
+        """Track the scene; the last n_prof frames under the profiler, after
+        calling before_prof()."""
         from torch.profiler import ProfilerActivity, profile
 
         cfg = load_config(os.path.join(ROOT, "config", "default.yaml"),
@@ -476,6 +523,8 @@ def phase_corr_impls(torch, kernels):
         for t, image in enumerate(frames[:IMPL_FRAMES - n_prof]):
             slam(t, image, scene.intrinsics.copy())
         if n_prof:
+            if before_prof:
+                before_prof()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
                 for t in range(IMPL_FRAMES - n_prof, IMPL_FRAMES):
@@ -506,10 +555,35 @@ def phase_corr_impls(torch, kernels):
         steps.corr_features = counted
         return counts, lambda: setattr(steps, "corr_features", real)
 
+    def count_window_branches():
+        """The same for kernel A on the pallas path: each corr_window call
+        also counts its live items and those its dot grid holds (the
+        kernel's rule, ops/corr_pallas.py:window_union), by level (map
+        height). Returns the counts {H: [live, union grid]} and an undo."""
+        from dpvo_tpu_torch.ops import corr_pallas as cp
+
+        real, counts = cp.corr_window, {}
+
+        def counted(f1, fmap, jj, valid, sy, sx):
+            live = valid & (jj >= 0) & (jj < fmap.shape[0])
+            c = counts.setdefault(fmap.shape[1], torch.zeros(2, dtype=torch.long, device="cuda"))
+            c.add_(torch.stack([live.sum(), (cp.window_union(sy, sx)[-1] & live).sum()]))
+            return real(f1, fmap, jj, valid, sy, sx)
+
+        cp.corr_window = counted
+        return counts, lambda: setattr(cp, "corr_window", real)
+
     launches, ates = {}, {}
     for impl, ks in IMPL_KERNELS.items():
-        # pallas_dma's frames are profiled (kernels C and D's time per frame)
-        slam, poses, launches[impl], sec = run(impl, 5 if impl == "pallas_dma" else 0)
+        # kernel A's branches are counted up to the profiled frames
+        window, undo = count_window_branches() if impl == "pallas" else (None, None)
+        slam, poses, launches[impl], sec = run(impl, 5 if impl in IMPL_PROFILED else 0, undo)
+        if window:
+            print(f"CORR_IMPL={impl}: kernel A's branches over frames 0-{IMPL_FRAMES - 6}, "
+                  "kernel's rule: " + ", ".join(
+                      f"union grid {g} of {n} live items at level {lvl} (per-pixel {n - g})"
+                      for lvl, (n, g) in enumerate(
+                          (window[h].tolist() for h in sorted(window, reverse=True)), 1)))
         if not slam.is_initialized or not np.isfinite(poses).all():
             raise AssertionError(f"CORR_IMPL={impl}: no initialization or non-finite poses")
         missing = [k for k in ks + PATH_KERNELS if launches[impl][k] == 0]
@@ -555,7 +629,7 @@ def _print_profile(prof, wall_ms, n):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/frame {e.count / n:7.1f}/frame  "
               f"{e.key[:100]}")
-    for name in ("segsum_kernel", "epilogue_kernel"):  # the kernels this slice redesigned
+    for name in ("window_union_kernel", "v3_fused_kernel"):  # kernels A and C+D
         mine = [e for e in evs if name in e.key]
         if mine:
             print(f"  {name}: {sum(e.self_device_time_total for e in mine) / 1e3 / n:.4f} "
@@ -757,8 +831,7 @@ def main():
                       launches),
         "corr_window": (cp_src, f"{cp_tpu}:188", impl_launches["pallas"]),
         "corr_sw": (cp_src, f"{cp_tpu}:336", impl_launches["pallas_sw"]),
-        "corr_v3": (cp_src, f"{cp_tpu}:620", impl_launches["pallas_dma"]),
-        "corr_v3_epi": (cp_src, f"{cp_tpu}:552", impl_launches["pallas_dma"]),
+        "corr_v3_fused": (cp_src, f"{cp_tpu}:620, {cp_tpu}:552", impl_launches["pallas_dma"]),
     }
     rows = []
     for name, s in stats.items():

@@ -2,73 +2,122 @@
 // pallas_dma, for Hopper (wrappers: dpvo_tpu_torch/ops/corr_pallas.py).
 //
 // Replaces four TPU kernels of dpvo_tpu/ops/corr_pallas.py:
-//   A  _make_kernel     (pallas_call at :188, _corr_level)    dpvo_corr_window
-//   B  _make_kernel_sw  (pallas_call at :336, _corr_level_sw) dpvo_corr_superwindow_sw
-//   C  _make_kernel_v3  (pallas_call at :620, _corr_level_v3) dpvo_corr_superwindow_v3
-//   D  _make_epi_kernel (pallas_call at :552, _epi_pallas)    dpvo_corr_epilogue_v3
+//   A    _make_kernel     (pallas_call at :188, _corr_level)    dpvo_corr_window
+//   B    _make_kernel_sw  (pallas_call at :336, _corr_level_sw) dpvo_corr_superwindow_sw
+//   C+D  _make_kernel_v3  (pallas_call at :620, _corr_level_v3) and
+//        _make_epi_kernel (pallas_call at :552, _epi_pallas)    dpvo_corr_v3_fused
 //
-// A, B and C compute what the TPU kernels compute: per edge e (edges
-// sorted by the caller; the order does not change any value), bf16 dot
-// products of the patch features f1[e, p, :] (p < 9) with frame feature
-// vectors of slot jj[e], accumulated in f32 and rounded once to bf16.
-// Out-of-image positions read zero (the TPU's zero-bordered frame cache;
-// here the reads are bounds-checked, no padded copy is made). Invalid
-// edges are written as zeros (the TPU zero-fills them too). The window
-// corners come from torch, computed exactly as the JAX code computes them.
-//   A: out[e, p, u*8 + v]    = f1[e,p] . map[jj, sy[e,p] + u, sx[e,p] + v]
-//      (each pixel's exact 8x8 window; the TPU emits an 8-aligned 8x16
-//      strip per pixel, a sublane rule, from which XLA selects the same
-//      values: the port emits the window itself)
-//   B: out[e, p, r*32 + c]   = f1[e,p] . map[jj, syc[e] + r, sxc[e] + c]  (14 x 32)
-//   C: out[e, p, r*24 + c]   = the same over a 16 x 24 superwindow
-// D is the v3 epilogue: per pixel 9 row taps (the row one-hot merged with
-// the y-bilinear; each product and each running sum rounded to bf16, as
-// the TPU's bf16 scratch tmp_r is) and 17 column taps (the column one-hot,
-// 8-alignment remainder included, merged with the x-bilinear and the pixel
-// mask; f32 accumulation), giving [E, 9, 168] bf16. Only 2 + 2 of those
-// taps carry weight, and the kernel evaluates only those, with the same
-// rounding points; its arithmetic avoids contraction into FMAs (__fmul_rn /
-// __fadd_rn), so it matches the plain version (all 26 taps) value for
-// value wherever s is finite (the dead taps add +-0).
+// The dots are what the TPU kernels compute: per edge e (edges sorted by
+// the caller; the order does not change any value), bf16 dot products of
+// the patch features f1[e, p, :] (p < 9) with frame feature vectors of
+// slot jj[e], accumulated in f32 and rounded once to bf16. Out-of-image
+// positions read zero (the TPU's zero-bordered frame cache; here the reads
+// are bounds-checked, no padded copy is made). Invalid edges (and a jj out
+// of range) are written as zeros. The window corners come from torch,
+// computed exactly as the JAX code computes them.
+//   A:   out[e, p, u*8 + v]  = f1[e,p] . map[jj, sy[e,p] + u, sx[e,p] + v]
+//        (each pixel's exact 8x8 window; the TPU emits an 8-aligned 8x16
+//        strip per pixel, a sublane rule, from which XLA selects the same
+//        values: the port emits the window itself)
+//   B:   out[e, p, r*32 + c] = f1[e,p] . map[jj, syc[e] + r, sxc[e] + c]  (14 x 32)
+//   C+D: level_v3's output [E, 9, 64]: C's dots over the 16 x 24
+//        superwindow s at (syc, sxc), then D, the v3 epilogue, per pixel:
+//        9 row taps (the row one-hot merged with the y-bilinear; each
+//        product and each running sum rounded to bf16, as the TPU's bf16
+//        scratch tmp_r is) and 17 column taps (the column one-hot, 8-
+//        alignment remainder included, merged with the x-bilinear and the
+//        pixel mask; f32 accumulation), of which the kept 7 x 7 outputs
+//        (last row and column zero).
 //
-// What bounds them on an H100. A, B and C: per edge and level 9 x N x C
-// MACs (N = 64, 448, 384 positions; C = 128), 11 to 77 GFLOP per call at
-// the steady state's 37k edges: on the bf16 tensor cores that is tens of
-// microseconds, below the bytes. The bytes are the output (E x 9 x N bf16:
-// 0.6 GB per call for B), the frames the edges touch and the patch rows;
-// so memory bounds them (measured: 1.1 ms per call against 0.07-0.23 ms;
-// the loads of one edge's window rows are short and scattered). D: its
-// function needs half of C's output (0.28 GB per level at 40960 rows)
-// and writes 0.12 GB, so memory bounds it: per pixel the 384 live bytes of
-// its 768-byte row of s, five per-pixel inputs and 336 output bytes.
+// The fact the fused kernel rests on. Of D's taps only a = dy, dy + 1 and
+// b = dxw, dxw + 1 carry weight (dy in [0, 7], dxw in [0, 15], as the
+// wrapper's v3_inputs clamps them); the others add +-0, which changes no
+// value where s is finite (at most the sign of a zero). So the kept output
+// (r, c) of pixel p reads s only at rows dy + r, dy + r + 1 and columns
+// dxw + c, dxw + c + 1: the pixel's own 8 x 8 window at (syc + dy, sxc +
+// dxw). tests/test_torch_corr_impls.py::test_v3_window_is_the_live_region
+// shows it on the plain versions.
 //
-// Design of A, B and C: one 128-thread block (4 warps) per edge. The
-// dots run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate): the A operand is the edge's 9 patch rows padded to 16
-// (loaded once per warp into registers, 4 x C/16 registers), the B
-// operand is 8 neighbouring frame positions of one window or superwindow
-// row, read straight from the NHWC map, where a position's C channels are
-// contiguous, which is the operand's column layout: with the channel
-// order below, each lane reads 16 bytes per 32 channels. One tile is 8
-// positions x 16 rows; a warp walks tiles. For A only row p of a tile is
-// kept (pixel p's own window), 9x more tensor-core work than needed,
-// which still costs less than the loads. D: one warp per (edge, pixel),
-// eight per block, no block barrier; 16-byte loads of the two live rows,
-// the row stage in registers, the shift by dxw by shuffles, 16-byte stores
-// (see epilogue_kernel).
+// What bounds A and C+D on an H100. Per (edge, level) 9 x 64 outputs, 2 x
+// 9 x 64 x C operations (C = 128: ~11 GFLOP a call at the steady state's
+// 37k edges, ~11 us on the bf16 tensor cores); the bytes their function
+// needs are the frames the edges touch, the patch rows, the per-edge
+// inputs and the [E, 9, 64] bf16 output (~0.07 ms at 3.35 TB/s,
+// chip_smoke.py's bounds). What they move in fact is each item's union
+// window through L2: ~12.8 tiles of 8 positions x C x 2 bytes, ~2 GB a
+// call at C = 128, and that sets their time. On one H100
+// (scripts/corr_union_probe.py, PERF.md) the time grows with C as those
+// bytes do (0.23 -> 0.39 ms a call for A from C = 64 to 128: ~6.4 TB/s at
+// the margin), and the part no tile count removes (geometry, patch rows,
+// epilogue, launch) is ~0.1 ms.
 //
-// Later work (not needed for correctness): stage the superwindow in
-// shared memory with TMA and share it between the warps, and fuse D into C
-// so the raw superwindow never reaches device memory.
+// Design of A and C+D (the kernels before them computed A's 9 pixels'
+// windows as 72 tiles of 8 positions, keeping one row of each 16-row tile,
+// and C's whole 16 x 24 superwindow as 48 tiles, written to memory for a
+// second kernel, D, to read back):
+// - One warp per (edge, level) item, four items per 128-thread block, no
+//   block barrier. The warp loads the edge's 9 patch rows into registers
+//   once as mma A fragments (rows 9..15 zero).
+// - Lanes 0..8 read the 9 pixel windows' corners (A: sy, sx; C+D: syc +
+//   dy, sxc + dxw) and the warp reduces them to the union rectangle,
+//   uh x uw positions. The dots of the union's positions are computed
+//   once: tiles of 8 consecutive positions of the row-major union (~13
+//   tiles at level 1 and ~11 at level 2 for pixels 1 px apart, against 72
+//   and 48), mma.sync m16n8k16 (bf16 in, f32 accumulate; wgmma's 64-row
+//   tiles would waste 55 of 64 rows). Each lane reads its position's 16
+//   bytes per 32 channels straight from the NHWC map, two tiles ahead of
+//   the mma (three register buffers), so loads stay in flight.
+// - Each tile is rounded to bf16 into the warp's dot grid in shared memory,
+//   [9][kGridPitch] (6.5 KB; the pitch makes the tile stores conflict-
+//   free), holding a union of up to kGridPos = 352 positions (44 tiles).
+//   The epilogue reads each pixel's window from the grid: A copies it (one
+//   16-byte store per window row), C+D applies D's live taps with D's
+//   rounding points (__fmul_rn / __fadd_rn, a bf16 round after every row
+//   tap) and writes the kept 7 x 7 (one 16-byte store per output row).
+// - A union larger than the grid (A's pixels spread apart by depth or
+//   rotation; C+D's union, at most 15 x 23 = 345 positions, always fits)
+//   takes the per-pixel branch of the same warp: per pixel and window row
+//   one tile of 8 positions, of which only the pixel's row is kept, into
+//   the grid with pitch 8. The choice is geometry alone
+//   (ops/corr_pallas.py:window_union applies the rule).
+// - Block count: E / 4 blocks per launch (one per item before), one launch
+//   per level as the level functions call them. No block barrier and 26 KB
+//   of static shared memory per block; the registers (the A fragments and
+//   three B tiles) bound the warps an SM holds. A
+//   persistent grid or both levels in one block would save only what the
+//   fixed part holds (~0.1 ms a call), not the L2 reads, which are the
+//   rest, so the kernel stays one warp per item.
+// Each dot is the chain of mma accumulations of tile_dots (same channel
+// order, same k-step order, one bf16 round), and the epilogues round where
+// D rounds: A's windows and C+D's output equal the per-pixel-tile A and D
+// after the full superwindow C value for value (scripts/corr_digest.py).
+//
+// B (later work: the same union-window template; its raw superwindow
+// feeds only torch's selection and bilinear): one 128-thread block (4
+// warps) per edge, tiles of 8 superwindow columns x 16 rows, every row
+// stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+#include <type_traits>
+
 namespace {
 
 constexpr int kP2 = 9;  // patch pixels
+constexpr int kWin = 8;  // a pixel's window is kWin x kWin
 constexpr int kTileThreads = 128;
+constexpr int kRS3 = 16, kCS3 = 24;  // the v3 superwindow
+constexpr int kItemWarps = 4;        // A, C+D: items (one warp each) per block
+constexpr int kGridPos = 352;        // union positions a warp's dot grid holds
+constexpr int kGridPitch = 360;      // its row pitch (bf16): conflict-free tile stores
+constexpr unsigned kFull = 0xffffffffu;
+
+// int32 arithmetic that wraps as JAX's does (signed overflow is undefined in C++)
+__device__ __forceinline__ int wrap_add(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
 // Channel order. A dot product may visit its channels in any order, so
 // k-step ks of a 32-channel chunk gives lane t (= lane % 4) the channels
@@ -98,24 +147,35 @@ __device__ __forceinline__ void load_a_all(const __nv_bfloat16* f1e, int lane,
   for (int ks = 0; ks < KS; ++ks) load_a(f1e, KS * 16, ks, lane, a[ks]);
 }
 
-// dots of the 16 A rows with the 8 positions (y, x0 + n), n < 8, of map
-// slot `frame` [H, W, C = KS * 16]; out-of-image positions are zero.
-// c[0..1]: row g, positions 2t, 2t+1; c[2..3]: row g + 8.
+// one lane's B operands of a tile: its position's C channels, 16 bytes per
+// 32-channel chunk (zero for a position outside the H x W map)
 template <int KS>
-__device__ __forceinline__ void tile_dots(const uint32_t (&a)[KS][4],
-                                          const __nv_bfloat16* frame, int H, int W, int y,
-                                          int x0, int lane, float* c) {
+struct BTile {
+  uint4 v[KS / 2];
+};
+
+template <int KS>
+__device__ __forceinline__ void load_b(const __nv_bfloat16* frame, int H, int W, int y, int x,
+                                       int t, BTile<KS>& b) {
   static_assert(KS % 2 == 0, "channels come in chunks of 32");
   constexpr int C = KS * 16;
-  const int g = lane >> 2, t = lane & 3;
-  const int x = x0 + g;  // this lane's B column (position)
   const bool in = y >= 0 && y < H && x >= 0 && x < W;
-  const __nv_bfloat16* src = frame + ((size_t)(in ? y : 0) * W + (in ? x : 0)) * C + 8 * t;
+  const uint4* src = reinterpret_cast<const uint4*>(
+      frame + ((size_t)(in ? y : 0) * W + (in ? x : 0)) * C + 8 * t);
+#pragma unroll
+  for (int j = 0; j < KS / 2; ++j) b.v[j] = in ? src[4 * j] : make_uint4(0, 0, 0, 0);
+}
+
+// the dots of the 16 A rows with a tile's 8 positions: one chain of KS
+// mma accumulations in k-step order. c[0..1]: row g, positions 2t, 2t+1;
+// c[2..3]: row g + 8.
+template <int KS>
+__device__ __forceinline__ void mma_tile(const uint32_t (&a)[KS][4], const BTile<KS>& b,
+                                         float* c) {
   c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
   for (int j = 0; j < KS / 2; ++j) {
-    const uint4 v = in ? *reinterpret_cast<const uint4*>(src + 32 * j) : make_uint4(0, 0, 0, 0);
-    const uint32_t b[2][2] = {{v.x, v.y}, {v.z, v.w}};
+    const uint32_t bb[2][2] = {{b.v[j].x, b.v[j].y}, {b.v[j].z, b.v[j].w}};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const uint32_t* ak = a[2 * j + h];
@@ -123,51 +183,37 @@ __device__ __forceinline__ void tile_dots(const uint32_t (&a)[KS][4],
           "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
           "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
           : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-          : "r"(ak[0]), "r"(ak[1]), "r"(ak[2]), "r"(ak[3]), "r"(b[h][0]), "r"(b[h][1]));
+          : "r"(ak[0]), "r"(ak[1]), "r"(ak[2]), "r"(ak[3]), "r"(bb[h][0]), "r"(bb[h][1]));
     }
   }
+}
+
+// the dots of the 16 A rows with the 8 positions (y, x0 + n), n < 8, of map
+// slot `frame` [H, W, C = KS * 16]
+template <int KS>
+__device__ __forceinline__ void tile_dots(const uint32_t (&a)[KS][4],
+                                          const __nv_bfloat16* frame, int H, int W, int y,
+                                          int x0, int lane, float* c) {
+  BTile<KS> b;
+  load_b<KS>(frame, H, W, y, x0 + (lane >> 2), lane & 3, b);
+  mma_tile<KS>(a, b, c);
 }
 
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
 }
 
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
 __device__ __forceinline__ void zero_fill(__nv_bfloat16* o, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = __float2bfloat16_rn(0.f);
 }
 
-// kernel A: per pixel p and window row u, one tile of 8 positions; only
-// row p of the tile is stored
-template <int KS>
-__global__ void __launch_bounds__(kTileThreads)
-window_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ fmap,
-              const int* __restrict__ jj, const uint8_t* __restrict__ valid,
-              const int* __restrict__ sy, const int* __restrict__ sx,
-              __nv_bfloat16* __restrict__ out, int mem, int H, int W) {
-  constexpr int C = KS * 16;
-  const int e = blockIdx.x;
-  __nv_bfloat16* o = out + (size_t)e * kP2 * 64;
-  const int j = jj[e];
-  if (!valid[e] || j < 0 || j >= mem) {
-    zero_fill(o, kP2 * 64);
-    return;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t a[KS][4];
-  load_a_all<KS>(f1 + (size_t)e * kP2 * C, lane, a);
-  const __nv_bfloat16* frame = fmap + (size_t)j * H * W * C;
-  for (int task = warp; task < kP2 * 8; task += kTileThreads / 32) {
-    const int p = task >> 3, u = task & 7;
-    float c[4];
-    tile_dots<KS>(a, frame, H, W, sy[e * kP2 + p] + u, sx[e * kP2 + p], lane, c);
-    if (g == p) store2(o + p * 64 + u * 8 + 2 * t, c[0], c[1]);
-    if (g + 8 == p) store2(o + p * 64 + u * 8 + 2 * t, c[2], c[3]);
-  }
-}
+// ---------------------------------------------------- kernel B ----
 
-// kernels B and C: the R x CW superwindow at (syc, sxc), tiles of 8
-// columns, all 9 rows stored
+// the R x CW superwindow at (syc, sxc), tiles of 8 columns, all 9 rows stored
 template <int R, int CW, int KS>
 __global__ void __launch_bounds__(kTileThreads)
 superwindow_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ fmap,
@@ -199,13 +245,23 @@ superwindow_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __
   }
 }
 
-// kernel D
-constexpr int kCS3 = 24, kSW3 = 16 * kCS3, kW7 = 7 * kCS3;
-constexpr int kEpiWarps = 8;  // pixels per block, one warp each
+// ------------------------------------------------ kernels A and C+D ----
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+struct UnionArgs {
+  const __nv_bfloat16* f1;    // [E, 9, C] patch rows
+  const __nv_bfloat16* fmap;  // [mem, H, W, C]
+  const int* jj;              // [E]
+  const uint8_t* valid;       // [E]
+  const int* y;               // A: sy [E, 9]; C+D: syc [E]
+  const int* x;               // A: sx [E, 9]; C+D: sxc [E]
+  const int* dy;              // C+D: [E, 9] window offsets in the superwindow
+  const int* dxw;
+  const float* dyf;           // C+D: [E, 9] bilinear fractions and pixel mask
+  const float* dxf;
+  const float* vf;
+  __nv_bfloat16* out;         // [E, 9, 64]
+  int E, mem, H, W;
+};
 
 // (k == a) * (1 - f) + (k == a - 1) * f, as the JAX expression rounds it
 __device__ __forceinline__ float merged_tap(int k, int a, float f) {
@@ -213,192 +269,228 @@ __device__ __forceinline__ float merged_tap(int k, int a, float f) {
                    __fmul_rn(k == a - 1 ? 1.f : 0.f, f));
 }
 
-// the 8 bf16 values of a 16-byte vector, as f32 (exact)
-__device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// the column stage of 8 outputs k0 + j from the 16 row-stage values t[i] =
-// tmp[k0 + 8q + i], where dxw = 8q + R: the live taps b = dxw (t[j + R])
-// and b = dxw + 1 (t[j + R + 1]), in that order, as the f32 sum over all
-// 17 taps adds them; the dead taps would add +-0
-template <int R>
-__device__ __forceinline__ uint4 column_taps(const float (&t)[16], float w0, float w1, bool l0,
-                                             bool l1) {
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float acc[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = 2 * i + h;
-      acc[h] = 0.f;
-      if (l0) acc[h] = __fadd_rn(acc[h], __fmul_rn(w0, t[j + R]));
-      if (l1) acc[h] = __fadd_rn(acc[h], __fmul_rn(w1, t[j + R + 1]));
-    }
-    const __nv_bfloat162 b = __floats2bfloat162_rn(acc[0], acc[1]);
-    o[i] = *reinterpret_cast<const uint32_t*>(&b);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// One warp per (edge, pixel). Of the 9 row taps (a) and 17 column taps (b)
-// that _make_epi_kernel evaluates, merged_tap is nonzero only at a = dy,
-// dy + 1 and b = dxw, dxw + 1; the others add +-0 to a running sum, which
-// for finite s changes no value (at most the sign of a zero). So a lane L <
-// 21 reads chunk L (8 values, 16 bytes) of the two live rows of s: the
-// pixel's 384 live bytes of 768. It computes row-stage values 8L .. 8L + 7
-// with the same bf16 rounds; lanes 21-23 stand for the stage's zero columns
-// 168-191. The column stage takes the two stage chunks that its 8 outputs
-// reach by shuffles and writes them as one 16-byte store.
-__global__ void __launch_bounds__(32 * kEpiWarps)
-epilogue_kernel(const __nv_bfloat16* __restrict__ s, const int* __restrict__ dy,
-                const int* __restrict__ dxw, const float* __restrict__ dyf,
-                const float* __restrict__ dxf, const float* __restrict__ vf,
-                __nv_bfloat16* __restrict__ out, int n_pix) {
+// One (edge, level) item per warp; grid: the warp's [9][kGridPitch] dot grid.
+template <bool kFused, int KS>
+__device__ __forceinline__ void union_item(const UnionArgs& A, __nv_bfloat16* grid) {
+  constexpr int C = KS * 16;
   const int lane = threadIdx.x & 31;
-  const int P = blockIdx.x * kEpiWarps + (threadIdx.x >> 5);
-  if (P >= n_pix) return;
-  const int d = dy[P], c = dxw[P];
-  const float fy = dyf[P], fx = dxf[P], v = vf[P];
-  // row stage
-  const bool la0 = d >= 0 && d < 9, la1 = d + 1 >= 0 && d + 1 < 9;
-  const float ta0 = merged_tap(d, d, fy), ta1 = merged_tap(d, d + 1, fy);
-  uint32_t tw[4] = {0u, 0u, 0u, 0u};  // row-stage chunk `lane`, bf16 pairs
-  if (lane < kW7 / 8) {
-    const __nv_bfloat16* sp = s + (size_t)P * kSW3 + 8 * lane;
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    const uint4 r0 = la0 ? *reinterpret_cast<const uint4*>(sp + d * kCS3) : zero;
-    const uint4 r1 = la1 ? *reinterpret_cast<const uint4*>(sp + (d + 1) * kCS3) : zero;
-    float x0[8], x1[8];
-    unpack8(r0, x0);
-    unpack8(r1, x1);
+  const int e = blockIdx.x * kItemWarps + (threadIdx.x >> 5);
+  if (e >= A.E) return;
+  uint4* o = reinterpret_cast<uint4*>(A.out + (size_t)e * kP2 * kWin * kWin);
+  const int jf = A.jj[e];
+  if (!A.valid[e] || jf < 0 || jf >= A.mem) {
+    for (int i = lane; i < kP2 * kWin; i += 32) o[i] = make_uint4(0, 0, 0, 0);
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+
+  // pixel `lane`'s window corner (lanes < 9), then the union of the 9
+  // windows, uh x uw positions at (y0, x0)
+  int wy = 0, wx = 0;
+  float fy = 0.f, fx = 0.f, v = 0.f;
+  if (lane < kP2) {
+    const int i = e * kP2 + lane;
+    if (kFused) {
+      // dy, dxw lie in these ranges (v3_inputs clamps them); the clamp
+      // here keeps any other input inside the superwindow
+      wy = wrap_add(A.y[e], clampi(A.dy[i], 0, kRS3 - kWin - 1));
+      wx = wrap_add(A.x[e], clampi(A.dxw[i], 0, kCS3 - kWin - 1));
+      fy = A.dyf[i];
+      fx = A.dxf[i];
+      v = A.vf[i];
+    } else {
+      wy = A.y[i];
+      wx = A.x[i];
+    }
+  }
+  const int y0 = __reduce_min_sync(kFull, lane < kP2 ? wy : INT_MAX);
+  const int y1 = __reduce_max_sync(kFull, lane < kP2 ? wy : INT_MIN);
+  const int x0 = __reduce_min_sync(kFull, lane < kP2 ? wx : INT_MAX);
+  const int x1 = __reduce_max_sync(kFull, lane < kP2 ? wx : INT_MIN);
+  const long long upos = ((long long)y1 - y0 + kWin) * ((long long)x1 - x0 + kWin);
+  const bool fits = upos <= kGridPos;  // else the per-pixel branch
+  const int pitch = fits ? x1 - x0 + kWin : kWin;
+  const int npos = fits ? (int)upos : 0;
+  const int ntiles = fits ? (npos + 7) >> 3 : kP2 * kWin;
+  const __nv_bfloat16* frame = A.fmap + (size_t)jf * A.H * A.W * C;
+
+  // this lane's position in tile k: union position k * 8 + g (past the
+  // union: off the map, zero), or window row k % 8, column g of pixel k / 8
+  auto fetch = [&](int k, BTile<KS>& b) {
+    if (k >= ntiles) return;
+    int y, x;
+    if (fits) {
+      const int n = k * 8 + g;
+      y = n < npos ? wrap_add(y0, n / pitch) : -1;
+      x = wrap_add(x0, n % pitch);
+    } else {
+      y = wrap_add(__shfl_sync(kFull, wy, k >> 3), k & 7);
+      x = wrap_add(__shfl_sync(kFull, wx, k >> 3), g);
+    }
+    load_b<KS>(frame, A.H, A.W, y, x, t, b);
+  };
+  uint32_t a[KS][4];
+  auto step = [&](int k, const BTile<KS>& b) {
+    if (k >= ntiles) return;
+    float c[4];
+    mma_tile<KS>(a, b, c);
+    if (fits) {
+      store2(grid + g * kGridPitch + k * 8 + 2 * t, c[0], c[1]);
+      if (g == 0) store2(grid + 8 * kGridPitch + k * 8 + 2 * t, c[2], c[3]);
+    } else {
+      const int p = k >> 3, u = k & 7;
+      if (g == p) store2(grid + p * kGridPitch + u * kWin + 2 * t, c[0], c[1]);
+      if (g + 8 == p) store2(grid + p * kGridPitch + u * kWin + 2 * t, c[2], c[3]);
+    }
+  };
+  // two tiles' loads in flight ahead of the mma
+  BTile<KS> b0, b1, b2;
+  fetch(0, b0);
+  fetch(1, b1);
+  load_a_all<KS>(A.f1 + (size_t)e * kP2 * C, lane, a);
+  for (int k = 0; k < ntiles; k += 3) {
+    fetch(k + 2, b2);
+    step(k, b0);
+    fetch(k + 3, b0);
+    step(k + 1, b1);
+    fetch(k + 4, b1);
+    step(k + 2, b2);
+  }
+  __syncwarp();
+
+  // epilogue: row i of the output, i = p * 8 + r, from pixel p's window in
+  // the grid at offset off (pitch `pitch`)
+  const int off = fits ? (wy - y0) * pitch + (wx - x0) : 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float t[2];
+  for (int i0 = 0; i0 < kP2 * kWin; i0 += 32) {
+    const int i = i0 + lane, p = min(i >> 3, kP2 - 1), r = i & 7;
+    const __nv_bfloat16* w = grid + p * kGridPitch + __shfl_sync(kFull, off, p) + r * pitch;
+    if (!kFused) {
+      if (i < kP2 * kWin)
+        o[i] = make_uint4(pack2(w[0], w[1]), pack2(w[2], w[3]), pack2(w[4], w[5]),
+                          pack2(w[6], w[7]));
+      continue;
+    }
+    const float pfy = __shfl_sync(kFull, fy, p), pfx = __shfl_sync(kFull, fx, p);
+    const float pv = __shfl_sync(kFull, v, p);
+    if (i >= kP2 * kWin) continue;
+    uint4 res = make_uint4(0, 0, 0, 0);
+    if (r < kWin - 1) {
+      // D's row stage at columns dxw .. dxw + 7 of output row r: the live
+      // taps a = dy (window row r) and a = dy + 1 (row r + 1), each product
+      // and running sum rounded to bf16 (merged_tap(k, a) depends only on
+      // k == a and k == a - 1)
+      const float ta0 = merged_tap(0, 0, pfy), ta1 = merged_tap(0, 1, pfy);
+      float tmp[kWin];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = 2 * i + h;
+      for (int c = 0; c < kWin; ++c) {
         float acc = 0.f;
-        if (la0) acc = bf16_round(__fadd_rn(acc, bf16_round(__fmul_rn(ta0, x0[j]))));
-        if (la1) acc = bf16_round(__fadd_rn(acc, bf16_round(__fmul_rn(ta1, x1[j]))));
-        t[h] = acc;
+        acc = bf16_round(__fadd_rn(acc, bf16_round(__fmul_rn(ta0, __bfloat162float(w[c])))));
+        acc = bf16_round(
+            __fadd_rn(acc, bf16_round(__fmul_rn(ta1, __bfloat162float(w[pitch + c])))));
+        tmp[c] = acc;
       }
-      // both bf16-exact: their high halves are the bf16 values
-      tw[i] = (__float_as_uint(t[0]) >> 16) | (__float_as_uint(t[1]) & 0xffff0000u);
-    }
-  }
-  // column stage: outputs 8 lane .. 8 lane + 7 read stage chunks lane + q
-  // and lane + q + 1 (dxw = 8q + R, q = floor(dxw / 8))
-  const int q = c >> 3, R = c & 7;
-  const bool l0 = c >= 0 && c < 17, l1 = c + 1 >= 0 && c + 1 < 17;
-  const float w0 = __fmul_rn(merged_tap(c, c, fx), v);
-  const float w1 = __fmul_rn(merged_tap(c, c + 1, fx), v);
-  float t[16];
+      // the column stage: the live taps b = dxw and b = dxw + 1, in that
+      // order, f32; outputs 0..6 kept, 7 zero
+      const float w0 = __fmul_rn(merged_tap(0, 0, pfx), pv);
+      const float w1 = __fmul_rn(merged_tap(0, 1, pfx), pv);
+      float val[kWin];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int src = (lane + q + h) & 31;
+      for (int c = 0; c < kWin - 1; ++c) {
+        float acc = 0.f;
+        acc = __fadd_rn(acc, __fmul_rn(w0, tmp[c]));
+        acc = __fadd_rn(acc, __fmul_rn(w1, tmp[c + 1]));
+        val[c] = acc;
+      }
+      val[kWin - 1] = 0.f;
+      uint32_t q[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t w = __shfl_sync(0xffffffffu, tw[i], src);
-      t[8 * h + 2 * i] = __uint_as_float(w << 16);
-      t[8 * h + 2 * i + 1] = __uint_as_float(w & 0xffff0000u);
+      for (int h = 0; h < 4; ++h) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(val[2 * h], val[2 * h + 1]);
+        q[h] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+      res = make_uint4(q[0], q[1], q[2], q[3]);
     }
+    o[i] = res;
   }
-  if (lane >= kW7 / 8) return;
-  uint4 o;
-  switch (R) {  // the same for the whole warp
-    case 0: o = column_taps<0>(t, w0, w1, l0, l1); break;
-    case 1: o = column_taps<1>(t, w0, w1, l0, l1); break;
-    case 2: o = column_taps<2>(t, w0, w1, l0, l1); break;
-    case 3: o = column_taps<3>(t, w0, w1, l0, l1); break;
-    case 4: o = column_taps<4>(t, w0, w1, l0, l1); break;
-    case 5: o = column_taps<5>(t, w0, w1, l0, l1); break;
-    case 6: o = column_taps<6>(t, w0, w1, l0, l1); break;
-    default: o = column_taps<7>(t, w0, w1, l0, l1); break;
-  }
-  *reinterpret_cast<uint4*>(out + (size_t)P * kW7 + 8 * lane) = o;
 }
 
-// launches kernel<KS> for the channel counts the port meets (FDIM 32 to 256)
-template <template <int> class K>
-int launch_by_channels(int C, int E, const void* f1, const void* fmap, const void* jj,
-                       const void* valid, const void* y, const void* x, void* out, int mem,
-                       int H, int W, void* stream) {
+// two kernels of one body, so that a profile names them apart
+template <int KS>
+__global__ void __launch_bounds__(32 * kItemWarps) window_union_kernel(const UnionArgs args) {
+  __shared__ __align__(16) __nv_bfloat16 grids[kItemWarps][kP2 * kGridPitch];
+  union_item<false, KS>(args, grids[threadIdx.x >> 5]);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(32 * kItemWarps) v3_fused_kernel(const UnionArgs args) {
+  __shared__ __align__(16) __nv_bfloat16 grids[kItemWarps][kP2 * kGridPitch];
+  union_item<true, KS>(args, grids[threadIdx.x >> 5]);
+}
+
+// calls f(std::integral_constant<int, KS>) for the channel counts the port
+// meets (FDIM 32 to 256: KS = C / 16 k-steps)
+template <class F>
+int by_channels(int C, F&& f) {
   switch (C) {
-    case 32: return K<2>::run(E, f1, fmap, jj, valid, y, x, out, mem, H, W, stream);
-    case 64: return K<4>::run(E, f1, fmap, jj, valid, y, x, out, mem, H, W, stream);
-    case 128: return K<8>::run(E, f1, fmap, jj, valid, y, x, out, mem, H, W, stream);
-    case 256: return K<16>::run(E, f1, fmap, jj, valid, y, x, out, mem, H, W, stream);
+    case 32: return f(std::integral_constant<int, 2>{});
+    case 64: return f(std::integral_constant<int, 4>{});
+    case 128: return f(std::integral_constant<int, 8>{});
+    case 256: return f(std::integral_constant<int, 16>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-#define TILE_KERNEL_ARGS                                                                    \
-  (const __nv_bfloat16*)f1, (const __nv_bfloat16*)fmap, (const int*)jj,                    \
-      (const uint8_t*)valid, (const int*)y, (const int*)x, (__nv_bfloat16*)out, mem, H, W
-
-template <int KS>
-struct Window {
-  static int run(int E, const void* f1, const void* fmap, const void* jj, const void* valid,
-                 const void* y, const void* x, void* out, int mem, int H, int W, void* stream) {
-    if (E > 0) window_kernel<KS><<<E, kTileThreads, 0, (cudaStream_t)stream>>>(TILE_KERNEL_ARGS);
-    return (int)cudaGetLastError();
-  }
-};
-
-template <int R, int CW>
-struct Superwindow {
-  template <int KS>
-  struct K {
-    static int run(int E, const void* f1, const void* fmap, const void* jj, const void* valid,
-                   const void* y, const void* x, void* out, int mem, int H, int W,
-                   void* stream) {
-      if (E > 0)
-        superwindow_kernel<R, CW, KS><<<E, kTileThreads, 0, (cudaStream_t)stream>>>(
-            TILE_KERNEL_ARGS);
-      return (int)cudaGetLastError();
-    }
-  };
-};
+template <bool kFused, int KS>
+int launch_union(const UnionArgs& a, void* stream) {
+  auto kernel = kFused ? v3_fused_kernel<KS> : window_union_kernel<KS>;
+  if (a.E > 0)
+    kernel<<<(a.E + kItemWarps - 1) / kItemWarps, 32 * kItemWarps, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" int dpvo_corr_window(const void* f1, const void* fmap, const void* jj,
                                 const void* valid, const void* sy, const void* sx, void* out,
                                 int E, int mem, int H, int W, int C, void* stream) {
-  return launch_by_channels<Window>(C, E, f1, fmap, jj, valid, sy, sx, out, mem, H, W, stream);
+  const UnionArgs a = {(const __nv_bfloat16*)f1, (const __nv_bfloat16*)fmap, (const int*)jj,
+                       (const uint8_t*)valid, (const int*)sy, (const int*)sx, nullptr, nullptr,
+                       nullptr, nullptr, nullptr, (__nv_bfloat16*)out, E, mem, H, W};
+  return by_channels(C, [&](auto ks) {
+    return launch_union<false, decltype(ks)::value>(a, stream);
+  });
 }
 
 extern "C" int dpvo_corr_superwindow_sw(const void* f1, const void* fmap, const void* jj,
                                         const void* valid, const void* syc, const void* sxc,
                                         void* out, int E, int mem, int H, int W, int C,
                                         void* stream) {
-  return launch_by_channels<Superwindow<14, 32>::K>(C, E, f1, fmap, jj, valid, syc, sxc, out,
-                                                   mem, H, W, stream);
+  return by_channels(C, [&](auto ks) {
+    if (E > 0)
+      superwindow_kernel<14, 32, decltype(ks)::value>
+          <<<E, kTileThreads, 0, (cudaStream_t)stream>>>(
+              (const __nv_bfloat16*)f1, (const __nv_bfloat16*)fmap, (const int*)jj,
+              (const uint8_t*)valid, (const int*)syc, (const int*)sxc, (__nv_bfloat16*)out, mem,
+              H, W);
+    return (int)cudaGetLastError();
+  });
 }
 
-extern "C" int dpvo_corr_superwindow_v3(const void* f1, const void* fmap, const void* jj,
-                                        const void* valid, const void* syc, const void* sxc,
-                                        void* out, int E, int mem, int H, int W, int C,
-                                        void* stream) {
-  return launch_by_channels<Superwindow<16, 24>::K>(C, E, f1, fmap, jj, valid, syc, sxc, out,
-                                                   mem, H, W, stream);
-}
-
-extern "C" int dpvo_corr_epilogue_v3(const void* s, const void* dy, const void* dxw,
-                                     const void* dyf, const void* dxf, const void* vf, void* out,
-                                     int E, void* stream) {
-  const int n_pix = E * kP2;
-  if (n_pix > 0)
-    epilogue_kernel<<<(n_pix + kEpiWarps - 1) / kEpiWarps, 32 * kEpiWarps, 0,
-                      (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)s, (const int*)dy, (const int*)dxw, (const float*)dyf,
-        (const float*)dxf, (const float*)vf, (__nv_bfloat16*)out, n_pix);
-  return (int)cudaGetLastError();
+extern "C" int dpvo_corr_v3_fused(const void* f1, const void* fmap, const void* jj,
+                                  const void* valid, const void* syc, const void* sxc,
+                                  const void* dy, const void* dxw, const void* dyf,
+                                  const void* dxf, const void* vf, void* out, int E, int mem,
+                                  int H, int W, int C, void* stream) {
+  const UnionArgs a = {(const __nv_bfloat16*)f1, (const __nv_bfloat16*)fmap, (const int*)jj,
+                       (const uint8_t*)valid, (const int*)syc, (const int*)sxc, (const int*)dy,
+                       (const int*)dxw, (const float*)dyf, (const float*)dxf, (const float*)vf,
+                       (__nv_bfloat16*)out, E, mem, H, W};
+  return by_channels(C, [&](auto ks) {
+    return launch_union<true, decltype(ks)::value>(a, stream);
+  });
 }

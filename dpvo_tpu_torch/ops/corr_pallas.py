@@ -18,12 +18,19 @@ JAX namesake does, rounding points included:
   ``pallas``      kernel A, each pixel's exact D x D window;
   ``pallas_sw``   kernel B, one RS x CS = 14 x 32 superwindow per edge,
                   anchored at the centre pixel, shared by its 9 pixels;
-  ``pallas_dma``  kernel C, one RS3 x CS3 = 16 x 24 superwindow per edge;
+  ``pallas_dma``  kernel C+D, the dots of the RS3 x CS3 = 16 x 24
+                  superwindow that its pixels' windows reach, with v3's
+                  tap-stencil epilogue fused (its row stage rounded to bf16
+                  after every tap as the TPU's bf16 scratch is): one launch
+                  writes the level's output, the raw superwindow never
+                  reaches memory;
 
-- the window selection and the 2x2 bilinear reduction follow: in torch
-  for A and B (XLA in JAX; gathers here, not the TPU's one-hot stacks),
-  in kernel D for C (the v3 tap stencil, its row stage rounded to bf16
-  after every tap as the TPU's bf16 scratch is).
+- the window selection and the 2x2 bilinear reduction of A and B follow
+  in torch (XLA in JAX; gathers here, not the TPU's one-hot stacks).
+
+Kernels A and C+D compute each (edge, level)'s dots once over the union
+of its 9 pixels' windows (``window_union`` gives A's rule for the union
+that its grid holds; C+D's always fits).
 
 The superwindow variants clamp each pixel's window into the superwindow
 (within +-3 px of the patch centre), as the TPU kernels do. The
@@ -43,6 +50,7 @@ from dpvo_tpu_torch import kernels
 from dpvo_tpu_torch.ops.corr import CS3, RS3, clamp_into_superwindow, pixel_mask, window_corners
 
 RS, CS = 14, 32  # the pallas_sw superwindow (corr_pallas.py:259-260)
+UNION_POS = 352  # union positions kernel A's dot grid holds (csrc/corr_pallas.cu: kGridPos)
 _BF16 = torch.bfloat16
 
 
@@ -51,10 +59,12 @@ _BF16 = torch.bfloat16
 
 def _map_rows(fmap, jj, valid, iy, ix):
     """Frame-feature vectors at (iy, ix) [E, ...] of slot jj [E] as f32,
-    zero outside the image and for invalid edges."""
+    zero outside the image and for invalid edges or slots out of range
+    (as the kernels write them)."""
     mem, H, W, C = fmap.shape
     ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
-    ok = ok & valid.reshape((-1,) + (1,) * (iy.dim() - 1))
+    live = valid & (jj >= 0) & (jj < mem)
+    ok = ok & live.reshape((-1,) + (1,) * (iy.dim() - 1))
     lin = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(iy.shape[0], -1)
     rows = fmap.reshape(mem, H * W, C)[jj.long().clamp(0, mem - 1)[:, None], lin]
     return rows.float() * ok.reshape(iy.shape[0], -1, 1).to(torch.float32)
@@ -115,6 +125,28 @@ def epilogue_v3_plain(s, dy, dxw, dyf, dxf, vf):
     return acc.to(_BF16)
 
 
+def corr_v3_fused_plain(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf):
+    """Kernel C+D's function, ``level_v3``'s output: the 16 x 24
+    superwindow's dots at (syc, sxc) [E], the v3 epilogue on them, its
+    kept 7 x 7 per pixel with a zero last row and column -> [E, P2, 64]
+    bf16 (dy, dxw, dyf, dxf, vf [E, P2] as ``v3_inputs`` makes them)."""
+    E, P2, _ = f1.shape
+    s = superwindow_plain(f1, fmap, jj, valid, syc, sxc, RS3, CS3)
+    wide = epilogue_v3_plain(s, dy, dxw, dyf, dxf, vf)
+    out = torch.nn.functional.pad(wide.reshape(E, P2, 7, CS3)[..., :7], (0, 1, 0, 1))
+    return out.reshape(E, P2, 64)
+
+
+def window_union(sy, sx, D: int = 8):
+    """Kernel A's geometry per edge, from the window corners sy, sx [E,
+    P2]: the union of the pixels' D x D windows, corner (y0, x0) and size
+    (uh, uw) int64 [E], and whether the kernel computes it from its dot
+    grid (``UNION_POS`` positions) rather than by its per-pixel branch."""
+    y0, x0 = sy.long().amin(1), sx.long().amin(1)
+    uh, uw = sy.long().amax(1) - y0 + D, sx.long().amax(1) - x0 + D
+    return y0, x0, uh, uw, uh * uw <= UNION_POS
+
+
 # ---------------- kernel wrappers ----------------
 
 
@@ -154,56 +186,46 @@ def corr_window(f1, fmap, jj, valid, sy, sx):
     return out
 
 
-def _superwindow(name, entry, R, Cw, f1, fmap, jj, valid, syc, sxc):
-    if f1.device.type == "cpu":
-        return superwindow_plain(f1, fmap, jj, valid, syc, sxc, R, Cw)
-    _check(name, f1, fmap, jj, valid, (syc, sxc))
-    E, P2, C = f1.shape
-    mem, H, W, _ = fmap.shape
-    out = torch.empty((E, P2, R * Cw), dtype=_BF16, device=f1.device)
-    rc = getattr(kernels.load(), entry)(
-        f1.data_ptr(), fmap.data_ptr(), jj.data_ptr(), valid.data_ptr(), syc.data_ptr(),
-        sxc.data_ptr(), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
-    kernels.check(name, rc)
-    kernels.LAUNCHES[name] += 1
-    return out
-
-
 def superwindow_sw(f1, fmap, jj, valid, syc, sxc):
     """Kernel B (``CORR_IMPL=pallas_sw``): the 14 x 32 superwindow of raw
     dots at (syc, sxc) [E] for all 9 pixels -> [E, 9, 448] bf16."""
-    return _superwindow("corr_sw", "dpvo_corr_superwindow_sw", RS, CS, f1, fmap, jj, valid,
-                        syc, sxc)
+    if f1.device.type == "cpu":
+        return superwindow_plain(f1, fmap, jj, valid, syc, sxc, RS, CS)
+    _check("corr_sw", f1, fmap, jj, valid, (syc, sxc))
+    E, P2, C = f1.shape
+    mem, H, W, _ = fmap.shape
+    out = torch.empty((E, P2, RS * CS), dtype=_BF16, device=f1.device)
+    rc = kernels.load().dpvo_corr_superwindow_sw(
+        f1.data_ptr(), fmap.data_ptr(), jj.data_ptr(), valid.data_ptr(), syc.data_ptr(),
+        sxc.data_ptr(), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
+    kernels.check("corr_sw", rc)
+    kernels.LAUNCHES["corr_sw"] += 1
+    return out
 
 
-def superwindow_v3(f1, fmap, jj, valid, syc, sxc):
-    """Kernel C (``CORR_IMPL=pallas_dma``): the 16 x 24 superwindow of raw
-    dots at (syc, sxc) [E] for all 9 pixels -> [E, 9, 384] bf16."""
-    return _superwindow("corr_v3", "dpvo_corr_superwindow_v3", RS3, CS3, f1, fmap, jj, valid,
-                        syc, sxc)
-
-
-def epilogue_v3(s, dy, dxw, dyf, dxf, vf):
-    """Kernel D (the v3 epilogue); see ``epilogue_v3_plain``. On the card
-    dy, dxw are int32 and dyf, dxf, vf f32, all [E, 9]."""
-    if s.device.type == "cpu":
-        return epilogue_v3_plain(s, dy, dxw, dyf, dxf, vf)
-    E, P2, SW = s.shape
-    if s.dtype != _BF16 or (P2, SW) != (9, RS3 * CS3):
-        raise ValueError(f"corr_v3_epi: s must be bf16 [E, 9, {RS3 * CS3}], got {s.dtype} "
-                         f"{tuple(s.shape)}")
-    if dy.dtype != torch.int32 or dxw.dtype != torch.int32 or any(
-            t.dtype != torch.float32 for t in (dyf, dxf, vf)):
-        raise ValueError("corr_v3_epi: dy/dxw must be int32 and dyf/dxf/vf f32")
-    if any(t.shape != (E, P2) for t in (dy, dxw, dyf, dxf, vf)):
-        raise ValueError("corr_v3_epi: dy/dxw/dyf/dxf/vf must be [E, 9]")
-    kernels.require_cuda("corr_v3_epi", s, dy, dxw, dyf, dxf, vf)
-    out = torch.empty((E, P2, 7 * CS3), dtype=_BF16, device=s.device)
-    rc = kernels.load().dpvo_corr_epilogue_v3(
-        s.data_ptr(), dy.data_ptr(), dxw.data_ptr(), dyf.data_ptr(), dxf.data_ptr(),
-        vf.data_ptr(), out.data_ptr(), E, kernels.stream_ptr(s))
-    kernels.check("corr_v3_epi", rc)
-    kernels.LAUNCHES["corr_v3_epi"] += 1
+def corr_v3_fused(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf):
+    """Kernel C+D (``CORR_IMPL=pallas_dma``): one level's output [E, 9,
+    64] bf16; see ``corr_v3_fused_plain``. On the card syc, sxc [E] and
+    dy, dxw [E, 9] are int32 (dy in [0, 7], dxw in [0, 15], as
+    ``v3_inputs`` clamps them), dyf, dxf, vf [E, 9] f32."""
+    if f1.device.type == "cpu":
+        return corr_v3_fused_plain(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf)
+    _check("corr_v3_fused", f1, fmap, jj, valid, (syc, sxc, dy, dxw))
+    E, P2, C = f1.shape
+    mem, H, W, _ = fmap.shape
+    if syc.shape != (E,) or sxc.shape != (E,) or any(
+            t.shape != (E, P2) for t in (dy, dxw, dyf, dxf, vf)):
+        raise ValueError("corr_v3_fused: syc/sxc must be [E] and dy/dxw/dyf/dxf/vf [E, 9]")
+    if any(t.dtype != torch.float32 for t in (dyf, dxf, vf)):
+        raise ValueError("corr_v3_fused: dyf/dxf/vf must be f32")
+    kernels.require_cuda("corr_v3_fused", f1, dyf, dxf, vf)
+    out = torch.empty((E, P2, 64), dtype=_BF16, device=f1.device)
+    rc = kernels.load().dpvo_corr_v3_fused(
+        f1.data_ptr(), fmap.data_ptr(), jj.data_ptr(), valid.data_ptr(), syc.data_ptr(),
+        sxc.data_ptr(), dy.data_ptr(), dxw.data_ptr(), dyf.data_ptr(), dxf.data_ptr(),
+        vf.data_ptr(), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
+    kernels.check("corr_v3_fused", rc)
+    kernels.LAUNCHES["corr_v3_fused"] += 1
     return out
 
 
@@ -244,9 +266,9 @@ def sw_inputs(cs, vs, H: int, W: int, radius: int):
 
 
 def v3_inputs(cs, vs, H: int, W: int, radius: int):
-    """Kernel C's superwindow corner and kernel D's arguments for one level
-    (``_corr_level_v3``, corr_pallas.py:608-613), as ``sw_inputs``: pixel
-    windows clamped within +-3 px of the centre's."""
+    """Kernel C+D's arguments for one level (``_corr_level_v3``,
+    corr_pallas.py:608-613), as ``sw_inputs``: pixel windows clamped
+    within +-3 px of the centre's."""
     return _superwindow_inputs(cs, vs, H, W, radius, 3, RS3 - 9, CS3 - 9)
 
 
@@ -298,16 +320,13 @@ def level_sw(fmap, f1, cs, jj, vs, radius: int):
 
 def level_v3(fmap, f1, cs, jj, vs, radius: int):
     """``_corr_level_v3`` (corr_pallas.py:582-659): one level through the
-    16 x 24 superwindow (kernel C), per-pixel windows clamped within
-    +-3 px of the centre's, then the tap-stencil epilogue (kernel D)."""
-    E, P2, _ = f1.shape
+    16 x 24 superwindow, per-pixel windows clamped within +-3 px of the
+    centre's, and the tap-stencil epilogue, in one kernel (C+D)."""
     _, H, W, _ = fmap.shape
-    D = 2 * radius + 2
+    if radius != 3:
+        raise ValueError("pallas_dma's 16 x 24 superwindow is built for CORR_RADIUS=3")
     corner, epi = v3_inputs(cs, vs, H, W, radius)
-    wide = epilogue_v3(superwindow_v3(f1, fmap, jj, vs, *corner), *epi)
-    out = wide.reshape(E, P2, D - 1, CS3)[..., :D - 1]
-    out = torch.nn.functional.pad(out, (0, 1, 0, 1))
-    return out.reshape(E, P2, D * D)
+    return corr_v3_fused(f1, fmap, jj, vs, *corner, *epi)
 
 
 # ---------------- entry points ----------------
@@ -362,7 +381,7 @@ def corr_features_pallas_sw(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius:
 
 
 def corr_features_pallas_dma(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3):
-    """``CORR_IMPL=pallas_dma``: the v3 16 x 24 superwindow (kernel C) and
-    its tap-stencil epilogue (kernel D); windows clamped within +-3 px of
-    the patch centre's."""
+    """``CORR_IMPL=pallas_dma``: the v3 16 x 24 superwindow and its
+    tap-stencil epilogue (kernel C+D); windows clamped within +-3 px of the
+    patch centre's."""
     return corr_features_common(level_v3, gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius)

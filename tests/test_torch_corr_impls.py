@@ -17,6 +17,8 @@ raw dot by one ulp; every variant is held to one bf16 ulp of each value.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -127,12 +129,70 @@ def test_epilogue_matches_epi_pallas_interpret():
     vf = (rng.uniform(size=(E, 9)) > 0.1).astype(np.float32)
     want = np.asarray(jcp._epi_pallas(jnp.asarray(s, jnp.bfloat16), *(
         jnp.asarray(a) for a in (dy, dxw, dyf, dxf, vf)), interpret=True), np.float32)
-    got = tcp.epilogue_v3(torch.as_tensor(s).to(torch.bfloat16), *(
+    got = tcp.epilogue_v3_plain(torch.as_tensor(s).to(torch.bfloat16), *(
         torch.as_tensor(a) for a in (dy, dxw, dyf, dxf, vf)))
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (E, 9, 168)
     got = got.float().numpy()
     assert_bf16_close(got, want)
     assert (got != want).sum() <= 10
+
+
+@pytest.mark.parametrize("dy,dxw", [(None, None), (0, 0), (0, 15), (7, 0), (7, 15)],
+                         ids=["random", "0-0", "0-15", "7-0", "7-15"])
+def test_v3_window_is_the_live_region(dy, dxw):
+    """The fact kernel C+D rests on: v3's epilogue reads only each pixel's
+    8 x 8 window of the superwindow at (dy, dxw) for its kept 7 x 7
+    outputs. s zeroed outside that window gives the same kept outputs as
+    the full s, at random offsets and at the ends of their ranges, with
+    bilinear fractions 0 and 1 among them and masked pixels."""
+    rng = np.random.default_rng(17 if dy is None else 10 * dy + dxw)
+    E = 96
+    s = torch.as_tensor(8 * rng.standard_normal((E, 9, 16, 24)), dtype=torch.float32).to(
+        torch.bfloat16)
+    full = lambda v, hi: torch.as_tensor(rng.integers(0, hi + 1, (E, 9)) if v is None
+                                         else np.full((E, 9), v), dtype=torch.int32)
+    dy_t, dxw_t = full(dy, 7), full(dxw, 15)
+    frac = lambda: torch.as_tensor(np.where(rng.uniform(size=(E, 9)) < 0.3,
+                                            rng.integers(0, 2, (E, 9)),
+                                            rng.uniform(size=(E, 9))), dtype=torch.float32)
+    dyf, dxf = frac(), frac()
+    vf = torch.as_tensor(rng.uniform(size=(E, 9)) > 0.2, dtype=torch.float32)
+    r, c = torch.arange(16)[:, None], torch.arange(24)[None, :]
+    live = ((r >= dy_t[..., None, None]) & (r < dy_t[..., None, None] + 8)
+            & (c >= dxw_t[..., None, None]) & (c < dxw_t[..., None, None] + 8))
+    kept = lambda x: tcp.epilogue_v3_plain(x.reshape(E, 9, 384), dy_t, dxw_t, dyf, dxf,
+                                           vf).reshape(E, 9, 7, 24)[..., :7]
+    want = kept(s)
+    assert torch.equal(kept(s * live), want)
+    assert (want[vf == 0] == 0).all() and (want != 0).any()
+
+
+@pytest.mark.parametrize("geometry", ["patch", "spread", "far"])
+def test_window_union_rule(geometry):
+    """Kernel A's union rule (ops/corr_pallas.py:window_union): every
+    pixel's window lies in its edge's union; the union is computed from the
+    dot grid when it holds at most UNION_POS positions, the kernel's own
+    constant; pixels 1 px apart always fit, 5 px apart take both branches,
+    and so do coordinates at +-1e10 (window_inputs clips the corners to the
+    map's border)."""
+    cu = (Path(tcp.__file__).parents[1] / "csrc" / "corr_pallas.cu").read_text()
+    assert int(re.search(r"kGridPos = (\d+);", cu).group(1)) == tcp.UNION_POS
+    gmap, fmap1, fmap2, coords, ii1, jj1, valid = _torch(make_inputs(18, E=256,
+                                                                     geometry=geometry))
+    for fmap, scale in ((fmap1, 1.0), (fmap2, 4.0)):
+        _, H, W, _ = fmap.shape
+        (sy, sx), _ = tcp.window_inputs(coords.reshape(-1, 9, 2) / scale, valid, H, W, 3)
+        y0, x0, uh, uw, fits = tcp.window_union(sy, sx)
+        sy, sx = sy.long(), sx.long()
+        assert ((sy >= y0[:, None]) & (sy + 8 <= (y0 + uh)[:, None])).all()
+        assert ((sx >= x0[:, None]) & (sx + 8 <= (x0 + uw)[:, None])).all()
+        assert torch.equal(fits, uh * uw <= tcp.UNION_POS)
+        if geometry == "patch":
+            assert fits.all()
+        elif geometry == "spread" and scale == 1.0:
+            assert fits.any() and not fits.all()
+        elif geometry == "far" and scale == 1.0:
+            assert not fits[:8].all()
 
 
 @pytest.mark.parametrize("impl", list(IMPLS) + ["pallas_fused"])

@@ -124,34 +124,63 @@ def test_spd_kernel_nonpositive_pivot_is_nonfinite(dev):
     assert not torch.isfinite(spd_solve(S.to(dev), torch.ones(96, device=dev)).cpu()).all()
 
 
-def _tile_inputs(C, E=300, mem=5, H=24, W=32, seed=0):
-    """Inputs of the correlation kernels A-C: sorted patch rows, maps, slots,
-    validity and window / superwindow corners around and beyond the map."""
-    g = torch.Generator().manual_seed(seed)
-    f1 = torch.randn(E, 9, C, generator=g).to(torch.bfloat16)
-    fmap = torch.randn(mem, H, W, C, generator=g).to(torch.bfloat16)
+def _features(C, E, mem, H, W, g, integer=False):
+    """Sorted patch rows, maps, slots and validity of the correlation
+    kernels A-C+D. integer: small integer values, so that every f32 dot is
+    exact in any summation order."""
+    feat = (lambda *s: torch.randint(-3, 4, s, generator=g).float()) if integer else (
+        lambda *s: torch.randn(*s, generator=g))
+    f1 = feat(E, 9, C).to(torch.bfloat16)
+    fmap = feat(mem, H, W, C).to(torch.bfloat16)
     jj = torch.randint(0, mem, (E,), generator=g, dtype=torch.int32)
     valid = torch.rand(E, generator=g) > 0.2
-    sy = torch.randint(-8, H + 1, (E, 9), generator=g, dtype=torch.int32)
-    sx = torch.randint(-8, W + 1, (E, 9), generator=g, dtype=torch.int32)
+    return f1, fmap, jj, valid
+
+
+def _patch_coords(E, H, W, g, spread):
+    """[E, 9, 2] pixel coordinates of patches around and beyond the map,
+    pixels `spread` px apart (per edge) plus up to 1 px of jitter."""
+    off = torch.stack(torch.meshgrid(torch.arange(-1.0, 2.0), torch.arange(-1.0, 2.0),
+                                     indexing="ij"), -1).flip(-1).reshape(9, 2)
+    base = torch.rand(E, 1, 2, generator=g) * torch.tensor([W + 16.0, H + 16.0]) - 8
+    return base + spread[:, None, None] * off + torch.rand(E, 9, 2, generator=g)
+
+
+def _tile_inputs(C, E=300, mem=5, H=24, W=32, seed=0):
+    """Kernels A and B's inputs: A's window corners of patches 1 px apart
+    (first half: its union branch), 6 px apart (next quarter: its
+    per-pixel branch) and anywhere (last quarter); B's superwindow corners
+    around and beyond the map."""
+    g = torch.Generator().manual_seed(seed)
+    f1, fmap, jj, valid = _features(C, E, mem, H, W, g)
+    spread = torch.where(torch.arange(E) < E // 2, 1.0, 6.0)
+    coords = _patch_coords(E, H, W, g, spread)
+    coords[3 * E // 4:] = torch.rand(E - 3 * E // 4, 9, 2, generator=g) * torch.tensor(
+        [W + 16.0, H + 16.0]) - 8
+    sy = torch.floor(coords[..., 1]).to(torch.int32) - 3
+    sx = torch.floor(coords[..., 0]).to(torch.int32) - 3
     syc = torch.randint(-16, H + 1, (E,), generator=g, dtype=torch.int32)
     sxc = torch.randint(-2, W // 8 + 1, (E,), generator=g, dtype=torch.int32) * 8
     return f1, fmap, jj, valid, (sy, sx), (syc, sxc)
 
 
-@pytest.mark.parametrize("C", [128, 32])
-@pytest.mark.parametrize("name", ["corr_window", "corr_sw", "corr_v3"])
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("name", ["corr_window", "corr_sw"])
 def test_corr_tile_kernels_match_plain(dev, name, C):
-    """Kernels A-C (tensor-core dots, f32 accumulation) against their plain
-    versions: one bf16 ulp, plus f32 accumulation error where a value
-    cancels (the tensor cores sum in their own order)."""
+    """Kernels A and B (tensor-core dots, f32 accumulation) against their
+    plain versions: one bf16 ulp, plus f32 accumulation error where a value
+    cancels (the tensor cores sum in their own order). A takes both of its
+    branches: the union of patches 1 px apart from its dot grid, spread
+    patches by per-pixel tiles."""
     from dpvo_tpu_torch import kernels
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
     f1, fmap, jj, valid, win, sup = _tile_inputs(C)
-    fn = {"corr_window": cp.corr_window, "corr_sw": cp.superwindow_sw,
-          "corr_v3": cp.superwindow_v3}[name]
+    fn = {"corr_window": cp.corr_window, "corr_sw": cp.superwindow_sw}[name]
     corners = win if name == "corr_window" else sup
+    if name == "corr_window":
+        fits = cp.window_union(*win)[-1]
+        assert fits[:150].all() and not fits[150:225].any()
     want = fn(f1, fmap, jj, valid, *corners).float()
     before = kernels.LAUNCHES[name]
     got = fn(*(t.to(dev) for t in (f1, fmap, jj, valid) + corners)).float().cpu()
@@ -162,46 +191,85 @@ def test_corr_tile_kernels_match_plain(dev, name, C):
     assert ((got - want).abs() <= tol).all()
 
 
-def test_corr_epilogue_kernel_matches_plain_bitwise(dev):
-    """Kernel D rounds where its plain version rounds and contracts nothing
-    into FMAs: the same bits."""
+def _v3_case(C, E=400, mem=5, H=24, W=32, seed=0):
+    """Kernel C+D's inputs from v3_inputs on patches 1 px apart and, on a
+    fifth of the edges, 5 px apart (the +-3 px clamp bites), integer
+    features (exact dots: the kernel's values are the plain version's)."""
+    from dpvo_tpu_torch.ops import corr_pallas as cp
+
+    g = torch.Generator().manual_seed(seed)
+    f1, fmap, jj, valid = _features(C, E, mem, H, W, g, integer=True)
+    spread = torch.where(torch.rand(E, generator=g) < 0.2, 5.0, 1.0)
+    corner, epi = cp.v3_inputs(_patch_coords(E, H, W, g, spread), valid, H, W, 3)
+    return (f1, fmap, jj, valid) + corner + epi
+
+
+def _fused_on_card(args, dev):
     from dpvo_tpu_torch import kernels
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
-    g = torch.Generator().manual_seed(3)
-    E = 500
-    s = (8 * torch.randn(E, 9, 384, generator=g)).to(torch.bfloat16)
-    dy = torch.randint(0, 8, (E, 9), generator=g, dtype=torch.int32)
-    dxw = torch.randint(0, 16, (E, 9), generator=g, dtype=torch.int32)
-    dyf, dxf = torch.rand(E, 9, generator=g), torch.rand(E, 9, generator=g)
-    vf = (torch.rand(E, 9, generator=g) > 0.1).float()
-    args = (s, dy, dxw, dyf, dxf, vf)
-    want = cp.epilogue_v3(*args)
-    before = kernels.LAUNCHES["corr_v3_epi"]
-    got = cp.epilogue_v3(*(t.to(dev) for t in args)).cpu()
+    before = kernels.LAUNCHES["corr_v3_fused"]
+    got = cp.corr_v3_fused(*(t.to(dev) for t in args)).cpu()
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["corr_v3_epi"] == before + 1
-    assert torch.equal(got, want)
+    assert kernels.LAUNCHES["corr_v3_fused"] == before + 1
+    return got
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+def test_corr_v3_fused_kernel_matches_plain(dev, C):
+    """Kernel C+D against its plain version (the superwindow's dots, the
+    v3 epilogue, the kept 7 x 7): exact dots, and the epilogue rounds
+    where the plain version rounds and contracts nothing into FMAs, so the
+    same bits."""
+    from dpvo_tpu_torch.ops import corr_pallas as cp
+
+    args = _v3_case(C)
+    want = cp.corr_v3_fused(*args)
+    got = _fused_on_card(args, dev)
+    assert got.shape == (400, 9, 64) and torch.equal(got, want)
+    assert (want != 0).any()
 
 
 @pytest.mark.parametrize("dy,dxw", [(0, 0), (0, 15), (7, 0), (7, 15)])
-def test_corr_epilogue_kernel_boundary_cases(dev, dy, dxw):
-    """Kernel D at the ends of its window offsets, with bilinear fractions
-    0 and 1 and masked pixels: the kernel evaluates only the live taps,
-    which gives the plain version's values (torch.equal)."""
+def test_corr_v3_fused_kernel_boundary_cases(dev, dy, dxw):
+    """Kernel C+D at the ends of its window offsets, with bilinear
+    fractions 0 and 1 and masked pixels: the kernel evaluates only the
+    live taps of each pixel's window, which gives the plain version's
+    values (torch.equal)."""
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
-    g = torch.Generator().manual_seed(10 * dy + dxw)
-    E = 64
-    s = (8 * torch.randn(E, 9, 384, generator=g)).to(torch.bfloat16)
-    full = lambda v, dtype=torch.float32: torch.full((E, 9), v, dtype=dtype)
-    frac = torch.tensor([0.0, 1.0, 0.5, 0.25])[torch.randint(0, 4, (E, 9), generator=g)]
-    args = (s, full(dy, torch.int32), full(dxw, torch.int32), frac, frac.flip(0),
-            (torch.rand(E, 9, generator=g) > 0.3).float())
-    want = cp.epilogue_v3(*args)
-    got = cp.epilogue_v3(*(t.to(dev) for t in args)).cpu()
-    assert torch.equal(got, want)
-    assert (want[args[5] == 0] == 0).all()  # vf = 0 pixels are zero
+    f1, fmap, jj, valid, syc, sxc, _, _, _, _, vf = _v3_case(128, E=64, seed=10 * dy + dxw)
+    g = torch.Generator().manual_seed(dy + dxw)
+    full = lambda v: torch.full((64, 9), v, dtype=torch.int32)
+    frac = torch.tensor([0.0, 1.0, 0.5, 0.25])[torch.randint(0, 4, (64, 9), generator=g)]
+    vf = vf * (torch.rand(64, 9, generator=g) > 0.3).float()
+    args = (f1, fmap, jj, valid, syc, sxc, full(dy), full(dxw), frac, frac.flip(0), vf)
+    want = cp.corr_v3_fused(*args)
+    assert torch.equal(_fused_on_card(args, dev), want)
+    assert (want[vf == 0] == 0).all()  # vf = 0 pixels are zero
+
+
+@pytest.mark.parametrize("name", ["corr_window", "corr_v3_fused"])
+def test_corr_union_kernels_zero_invalid_edges(dev, name):
+    """Kernels A and C+D write zeros for an invalid edge and for a valid
+    edge whose slot jj is out of range (-1, mem)."""
+    from dpvo_tpu_torch.ops import corr_pallas as cp
+
+    if name == "corr_window":
+        f1, fmap, jj, valid, win, _ = _tile_inputs(128)
+        args = [f1, fmap, jj, valid, *win]
+    else:
+        args = list(_v3_case(128))
+    mem = args[1].shape[0]
+    args[3] = args[3].clone()
+    args[3][:40] = True
+    args[2] = args[2].clone()
+    args[2][:20] = torch.where(torch.arange(20) % 2 == 0, -1, mem)
+    got = getattr(cp, name)(*(t.to(dev) for t in args)).cpu()
+    torch.cuda.synchronize()
+    valid, jj = args[3], args[2]
+    dead = ~valid | (jj < 0) | (jj >= mem)
+    assert dead[:20].all() and (got[dead] == 0).all() and (got[~dead] != 0).any()
 
 
 def test_corr_clamp_mode_matches_plain(dev):
