@@ -11,16 +11,17 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    shapes of the default configuration's steady state (correlation, all
    variants: 37344 live edges in a 40960-row bucket, 5% of them spread 3-6
    px so that corr.cu and kernel A take both their branches, whose counts
-   are printed; kernel C+D on Gaussian features within the raw dots' bf16
-   ulp and on integer features, also at the ends of its window offsets,
-   torch.equal; segment sum: BA's f32
+   are printed; kernels B and C+D on Gaussian features within the raw dots'
+   bf16 ulp and on integer features, also at the ends of their window
+   offsets, torch.equal; segment sum: BA's f32
    [49152, 98] into 2560 rows and SoftAgg's two bf16 [40960, 768] sums, bit
    for bit against the plain version on the CPU; SPD solve: n = 96, forward
    and backward). Print the error and the median time of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (``library_ms``): each an event pair around one call, host launch
    included (``ms``), and for the kernels also the device time of their
-   launches alone (``device_ms``, profiler).
+   launches alone (``device_ms``, profiler; it raises unless the profiler
+   kept an event for every kernel launched).
 3. Drive the main path through the tracker's entry points: DPVO with
    config/default.yaml (CORR_IMPL auto) and weights/vonet_synth.npz on a
    synthetic 480x640 plane scene for 40 frames, then terminate(). The
@@ -32,11 +33,14 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
 4. The same path for 30 frames once per CORR_IMPL (xla, pallas, pallas_sw,
    pallas_dma, pallas_fused), counters zeroed before each run: each run's
    correlation kernels must have run, and its ATE stay within
-   IMPL_ATE_FACTOR of the exact (xla) run's; pallas's and pallas_dma's last
-   5 frames run under the profiler, and the pallas run counts the live
-   items that took each of kernel A's branches. The xla run is made twice and
-   the two trajectories must be bit for bit equal; the second counts how
-   many live edges took each of corr.cu's branches.
+   IMPL_ATE_FACTOR of the exact (xla) run's; pallas's, pallas_sw's and
+   pallas_dma's last 5 frames run under the profiler, and the pallas and
+   pallas_sw runs count the live items that took each of kernel A's and
+   B's branches. The xla run is made twice and the two trajectories must
+   be bit for bit equal; the second counts how many live edges took each
+   of corr.cu's branches. Then the main path with PIPELINE_DEPTH 3 (each
+   keyframe decision applied three frames late): it must initialize, keep
+   three decisions pending, cull and give finite poses.
 5. Small-path parity: the tiny configuration of the tests
    (tests/fixtures/tiny_synth.npz, 48x64, 24 frames, f32) on the card and
    on the CPU with the same injected draws: free-running (init state,
@@ -88,23 +92,45 @@ def cuda_ms(fn, reps, warmup=2):
 def device_ms(fn, reps, warmup=2):
     """Device time per call of the kernels fn() launches (profiler, summed
     over them). Beside cuda_ms's event pair, which includes the host's
-    launch: for a call shorter than its launch, that times the host."""
+    launch: for a call shorter than its launch, that times the host.
+
+    A profile counts only if the profiler kept an event for every kernel
+    the reps launched: where fn launches the port's kernels, one each per
+    wrapper call and nothing else, reps x the launches kernels.LAUNCHES
+    counts in one call; where it launches none (a library call or a plain
+    version), reps x the events of one call profiled alone. The profiler
+    on the card sometimes drops an event (an H100 run kept 39 of 40); such
+    a profile is reported and taken again, and after three incomplete
+    profiles this raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from dpvo_tpu_torch import kernels
+
+    def profiled(n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return sum(e.count for e in evs), sum(e.self_device_time_total for e in evs)
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us == 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    before = sum(kernels.LAUNCHES.values())
+    fn()
+    torch.cuda.synchronize()
+    launched = sum(kernels.LAUNCHES.values()) - before
+    for _ in range(3):
+        want = reps * (launched or profiled(1)[0])
+        count, us = profiled(reps)
+        if count == want and us > 0:
+            return us / 1e3 / reps
+        print(f"device_ms: the profiler kept {count} kernel events of the {want} launched "
+              f"({us / 1e3:.4f} ms of device time); this profile is not used")
+    raise RuntimeError("the profiler kept every kernel event in none of 3 profiles")
 
 
 def bound(nbytes, flops, peak_flops):
@@ -314,9 +340,10 @@ def corr_variant_kernels(torch, args, nframes, nrows):
         _, H, W, _ = fmap.shape
         c = cs / scale
         win, _ = cp.window_inputs(c, vs, H, W, 3)
-        sw, _ = cp.sw_inputs(c, vs, H, W, 3)
-        v3, epi = cp.v3_inputs(c, vs, H, W, 3)
-        levels.append(dict(fmap=fmap, HW=H * W, win=win, sw=sw, v3=v3 + epi))
+        sw, sw_epi = cp.sw_inputs(c, vs, H, W, 3)
+        v3, v3_epi = cp.v3_inputs(c, vs, H, W, 3)
+        levels.append(dict(fmap=fmap, HW=H * W, win=win, corr_sw_fused=sw + sw_epi,
+                           corr_v3_fused=v3 + v3_epi))
     fits = [cp.window_union(*lv["win"])[-1][vs] for lv in levels]
     print(f"corr_window: live (edge, level) items by branch, kernel's rule: union grid "
           f"{int(fits[0].sum())} + {int(fits[1].sum())}, per-pixel {int((~fits[0]).sum())} + "
@@ -325,98 +352,119 @@ def corr_variant_kernels(torch, args, nframes, nrows):
         raise AssertionError("the correlation inputs do not take both of kernel A's branches")
     feat_bytes = nframes * sum(lv["HW"] for lv in levels) * C * 2 + nrows * C * 9 * 2
     idx_bytes = E_cap * (4 + 1)  # jj, valid
-    out = {}
-    tile = {"corr_window": (cp.corr_window, cp.corr_window_plain, "win", 64, {}),
-            "corr_sw": (cp.superwindow_sw, cp.superwindow_plain, "sw", 448,
-                        dict(R=cp.RS, Cw=cp.CS))}
-    for name, (kern, plain, key, npos, kw) in tile.items():
-        run = lambda fn, **k: [fn(f1, lv["fmap"], jj, vs, *lv[key], **k) for lv in levels]
-        got, want = run(kern), run(plain, **kw)
-        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-        # one bf16 ulp, plus f32 accumulation error where a value cancels
-        bad = sum(int(((a.float() - b.float()).abs() > 2.0 ** -7 * torch.maximum(
-            a.float().abs(), b.float().abs()) + 2e-3).sum()) for a, b in zip(got, want))
-        print(f"{name}: max_abs_err {err:.6g}")
-        if bad:
-            raise AssertionError(f"{name} kernel disagrees with its plain version ({bad} values)")
-        corner_bytes = E_cap * (9 if key == "win" else 1) * 2 * 4
-        nbytes = feat_bytes + 2 * (idx_bytes + corner_bytes + E_cap * 9 * npos * 2)
-        out[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: run(kern), 20),
-                         device_ms=device_ms(lambda: run(kern), 20),
-                         plain_ms=cuda_ms(lambda: run(plain, **kw), 2, warmup=1),
-                         library_ms=None,
-                         bound=bound(nbytes, 2 * E * 9 * npos * C * 2, PEAK_BF16))
-    out["corr_v3_fused"] = v3_fused_kernel(torch, cp, f1, jj, vs, levels, feat_bytes, idx_bytes)
+    run = lambda fn: [fn(f1, lv["fmap"], jj, vs, *lv["win"]) for lv in levels]
+    got, want = run(cp.corr_window), run(cp.corr_window_plain)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    # one bf16 ulp, plus f32 accumulation error where a value cancels
+    bad = sum(int(((a.float() - b.float()).abs() > 2.0 ** -7 * torch.maximum(
+        a.float().abs(), b.float().abs()) + 2e-3).sum()) for a, b in zip(got, want))
+    print(f"corr_window: max_abs_err {err:.6g}")
+    if bad:
+        raise AssertionError(f"corr_window kernel disagrees with its plain version ({bad} values)")
+    nbytes = feat_bytes + 2 * (idx_bytes + E_cap * 9 * 2 * 4 + E_cap * 9 * 64 * 2)
+    out = {"corr_window": dict(
+        max_abs_err=err, ms=cuda_ms(lambda: run(cp.corr_window), 20),
+        device_ms=device_ms(lambda: run(cp.corr_window), 20),
+        plain_ms=cuda_ms(lambda: run(cp.corr_window_plain), 2, warmup=1), library_ms=None,
+        bound=bound(nbytes, 2 * E * 9 * 64 * C * 2, PEAK_BF16))}
+    for name in ("corr_sw_fused", "corr_v3_fused"):
+        out[name] = superwindow_kernel(torch, cp, name, f1, jj, vs, levels, feat_bytes, idx_bytes)
     return out
 
 
-def v3_fused_kernel(torch, cp, f1, jj, vs, levels, feat_bytes, idx_bytes):
-    """Kernel C+D against its plain version (superwindow_plain, then
-    epilogue_v3_plain, sliced and padded): torch.equal on integer features
-    (every f32 dot exact, so the raw dots agree and the epilogue rounds
-    where its plain version rounds) at the correlation inputs' geometry and
-    at the ends of the window offsets; within the raw dots' bf16 ulp,
-    carried through the epilogue, on the Gaussian features."""
+# kernels B and C+D: the superwindow's plain dots (rows x columns), the
+# plain epilogue on them as the kernel's plain version applies it, and the
+# ends of the window offsets (dy, dxw)
+SUPERWINDOWS = {"corr_sw_fused": ((14, 32), (6, 24)), "corr_v3_fused": ((16, 24), (7, 15))}
+
+
+def superwindow_kernel(torch, cp, name, f1, jj, vs, levels, feat_bytes, idx_bytes):
+    """Kernel B or C+D against its plain version (superwindow_plain, then
+    the selection and bilinear of level_sw or the v3 epilogue, sliced and
+    padded): torch.equal on integer features (every f32 dot exact, so the
+    raw dots agree and the epilogue rounds where its plain version rounds)
+    at the correlation inputs' geometry and at the ends of the window
+    offsets; within the raw dots' bf16 ulp, carried through the epilogue,
+    on the Gaussian features."""
     E_cap, C = f1.shape[0], f1.shape[2]
     E = int(vs.sum())
     dev = f1.device
     g = torch.Generator(device=dev).manual_seed(1)
-    fused = lambda fn, f, lvs: [fn(f, lv["fmap"], jj, vs, *lv["v3"]) for lv in lvs]
-    got, want = fused(cp.corr_v3_fused, f1, levels), fused(cp.corr_v3_fused_plain, f1, levels)
+    kern, plain = getattr(cp, name), getattr(cp, name + "_plain")
+    (R, Cw), (dy_max, dxw_max) = SUPERWINDOWS[name]
+    fused = lambda fn, f, lvs: [fn(f, lv["fmap"], jj, vs, *lv[name]) for lv in lvs]
+    got, want = fused(kern, f1, levels), fused(plain, f1, levels)
+
     # the plain epilogue on the magnitudes of the plain raw dots bounds how
-    # far one bf16 ulp of each raw dot (and a flipped rounding of the row
+    # far one bf16 ulp of each raw dot (and a flipped rounding of v3's row
     # stage) moves an output
     def envelope(lv):
-        syc, sxc, *epi = lv["v3"]
-        s = cp.superwindow_plain(f1, lv["fmap"], jj, vs, syc, sxc, cp.RS3, cp.CS3).abs()
-        wide = cp.epilogue_v3_plain(s, *epi).reshape(E_cap, 9, 7, cp.CS3)[..., :7]
+        syc, sxc, dy, dxw, dyf, dxf, vf = lv[name]
+        s = cp.superwindow_plain(f1, lv["fmap"], jj, vs, syc, sxc, R, Cw).abs()
+        if name == "corr_sw_fused":
+            return cp.epilogue_sw_plain(s, dy, dxw, dyf, dxf, vf).float()
+        wide = cp.epilogue_v3_plain(s, dy, dxw, dyf, dxf, vf).reshape(E_cap, 9, 7, Cw)[..., :7]
         return torch.nn.functional.pad(wide, (0, 1, 0, 1)).reshape(E_cap, 9, 64).float()
 
     env = [envelope(lv) for lv in levels]
     err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
     bad = sum(int(((a.float() - b.float()).abs() > 2.0 ** -6 * m + 2.0 ** -7 * b.float().abs()
                    + 2e-3).sum()) for a, b, m in zip(got, want, env))
-    print(f"corr_v3_fused: Gaussian features: max_abs_err {err:.6g}, equal values "
+    print(f"{name}: Gaussian features: max_abs_err {err:.6g}, equal values "
           f"{sum(int((a == b).sum()) for a, b in zip(got, want))} of "
           f"{sum(a.numel() for a in got)}")
     if bad:
-        raise AssertionError(f"corr_v3_fused disagrees with its plain version ({bad} values)")
+        raise AssertionError(f"{name} disagrees with its plain version ({bad} values)")
     ints = lambda t: torch.randint(-3, 4, t.shape, generator=g, device=dev).to(torch.bfloat16)
     f1i = ints(f1)
     lvi = [dict(lv, fmap=ints(lv["fmap"])) for lv in levels]
-    if not all(torch.equal(a, b) for a, b in zip(fused(cp.corr_v3_fused, f1i, lvi),
-                                                  fused(cp.corr_v3_fused_plain, f1i, lvi))):
-        raise AssertionError("corr_v3_fused disagrees with its plain version on exact dots")
-    # the ends of the window offsets, bilinear fractions 0 and 1, masked pixels
-    syc, sxc, _, _, _, _, vf = lvi[0]["v3"]
-    for dy, dxw in ((0, 0), (0, 15), (7, 0), (7, 15)):
+    if not all(torch.equal(a, b) for a, b in zip(fused(kern, f1i, lvi), fused(plain, f1i, lvi))):
+        raise AssertionError(f"{name} disagrees with its plain version on exact dots")
+    # the ends of the window offsets, bilinear fractions 0 and 1, masked
+    # pixels; then the pixels' windows spread over the superwindow (dy 0 /
+    # dy_max / 2 / dy_max by pixel row, dxw likewise by pixel column): B's
+    # union of 14 x 32 positions takes its per-pixel branch
+    syc, sxc, _, _, _, _, vf = lvi[0][name]
+    full = lambda v: torch.full((E_cap, 9), v, dtype=torch.int32, device=dev)
+    p = torch.arange(9, device=dev).expand(E_cap, 9)
+    spread = ((p // 3 * (dy_max // 2)).int().contiguous(),
+              (p % 3 * (dxw_max // 2)).int().contiguous())
+    for dy, dxw in [(full(a), full(b)) for a in (0, dy_max) for b in (0, dxw_max)] + [spread]:
         frac = torch.tensor([0.0, 1.0], device=dev)[
             torch.randint(0, 2, (E_cap, 9), generator=g, device=dev)]
-        full = lambda v: torch.full((E_cap, 9), v, dtype=torch.int32, device=dev)
-        case = (f1i, lvi[0]["fmap"], jj, vs, syc, sxc, full(dy), full(dxw), frac, 1 - frac,
+        case = (f1i, lvi[0]["fmap"], jj, vs, syc, sxc, dy, dxw, frac, 1 - frac,
                 vf * (torch.rand((E_cap, 9), generator=g, device=dev) > 0.3).float())
-        if not torch.equal(cp.corr_v3_fused(*case), cp.corr_v3_fused_plain(*case)):
-            raise AssertionError(f"corr_v3_fused disagrees with its plain version at dy {dy}, "
-                                 f"dxw {dxw}")
-    print("corr_v3_fused: torch.equal to its plain version on integer features, at the "
-          "correlation inputs' windows and at dy 0 / 7 x dxw 0 / 15 with fractions 0 and 1 "
-          "and masked pixels")
+        if not torch.equal(kern(*case), plain(*case)):
+            raise AssertionError(f"{name} disagrees with its plain version at dy "
+                                 f"{dy[0].tolist()}, dxw {dxw[0].tolist()}")
+    fits = cp.window_union(syc[:, None] + spread[0], sxc[:, None] + spread[1])[-1][vs]
+    print(f"{name}: torch.equal to its plain version on integer features, at the "
+          f"correlation inputs' windows, at dy 0 / {dy_max} x dxw 0 / {dxw_max} with "
+          "fractions 0 and 1 and masked pixels, and with windows spread over the "
+          f"superwindow (union grid {int(fits.sum())}, per-pixel {int((~fits).sum())} of "
+          f"{E} live items)")
+    if name == "corr_sw_fused" and fits.any():
+        raise AssertionError("the spread windows do not take kernel B's per-pixel branch")
     # per level: syc/sxc [E] and the five per-pixel inputs read, the
     # [E, 9, 64] bf16 output written; 2 x 9 x 64 x C operations per edge.
-    # Beside it the bounds of the two kernels it replaces: C (the raw 16 x 24
+    # Beside it the bounds of the kernels it replaces: B's raw 14 x 32
+    # superwindow written (torch's epilogue not counted); C (the raw 16 x 24
     # superwindow written) and D (its live rows read back, [E, 9, 168]
     # written)
     per_level = idx_bytes + E_cap * 2 * 4 + E_cap * 9 * 5 * 4 + E_cap * 9 * 64 * 2
     new = bound(feat_bytes + 2 * per_level, 2 * 2 * E * 9 * 64 * C, PEAK_BF16)
-    old_c = bound(feat_bytes + 2 * (idx_bytes + E_cap * 2 * 4 + E_cap * 9 * 384 * 2),
-                  2 * E * 9 * 384 * C * 2, PEAK_BF16)
-    old_d = bound(2 * E_cap * 9 * (192 * 2 + 5 * 4 + 168 * 2), 2 * E_cap * 9 * 168 * (4 + 6),
-                  PEAK_F32)
-    print(f"corr_v3_fused: bound {new[0]:.5f} ms ({new[1]}); unfused C {old_c[0]:.5f} + D "
-          f"{old_d[0]:.5f} = {old_c[0] + old_d[0]:.5f} ms")
-    return dict(max_abs_err=err, ms=cuda_ms(lambda: fused(cp.corr_v3_fused, f1, levels), 20),
-                device_ms=device_ms(lambda: fused(cp.corr_v3_fused, f1, levels), 20),
-                plain_ms=cuda_ms(lambda: fused(cp.corr_v3_fused_plain, f1, levels), 2, warmup=1),
+    old = bound(feat_bytes + 2 * (idx_bytes + E_cap * 2 * 4 + E_cap * 9 * R * Cw * 2),
+                2 * E * 9 * R * Cw * C * 2, PEAK_BF16)
+    if name == "corr_sw_fused":
+        print(f"{name}: bound {new[0]:.5f} ms ({new[1]}); unfused B {old[0]:.5f} ms")
+    else:
+        old_d = bound(2 * E_cap * 9 * (192 * 2 + 5 * 4 + 168 * 2),
+                      2 * E_cap * 9 * 168 * (4 + 6), PEAK_F32)
+        print(f"{name}: bound {new[0]:.5f} ms ({new[1]}); unfused C {old[0]:.5f} + D "
+              f"{old_d[0]:.5f} = {old[0] + old_d[0]:.5f} ms")
+    return dict(max_abs_err=err, ms=cuda_ms(lambda: fused(kern, f1, levels), 20),
+                device_ms=device_ms(lambda: fused(kern, f1, levels), 20),
+                plain_ms=cuda_ms(lambda: fused(plain, f1, levels), 2, warmup=1),
                 library_ms=None, bound=new)
 
 
@@ -482,9 +530,12 @@ def phase_main_path(torch, kernels):
 # the kernels each CORR_IMPL's correlation runs, and those every run of the
 # default configuration adds: BA's f32 segment sum and pose solve, SoftAgg's
 # bf16 segment sums
-IMPL_KERNELS = {"xla": ["corr"], "pallas": ["corr_window"], "pallas_sw": ["corr_sw"],
+IMPL_KERNELS = {"xla": ["corr"], "pallas": ["corr_window"], "pallas_sw": ["corr_sw_fused"],
                 "pallas_dma": ["corr_v3_fused"], "pallas_fused": ["corr"]}
-IMPL_PROFILED = ("pallas", "pallas_dma")  # their last 5 frames run under the profiler
+# their last 5 frames run under the profiler
+IMPL_PROFILED = ("pallas", "pallas_sw", "pallas_dma")
+# the kernels whose union-grid branch phase 4 counts on their paths (A and B)
+UNION_KERNELS = {"pallas": "corr_window", "pallas_sw": "corr_sw_fused"}
 # Bound on each variant's ATE, written before the first card run: the variants
 # differ from the exact windows only in bf16 rounding points and, for the
 # superwindows, in windows clamped beyond +-3 px of the patch centre, which real
@@ -555,35 +606,40 @@ def phase_corr_impls(torch, kernels):
         steps.corr_features = counted
         return counts, lambda: setattr(steps, "corr_features", real)
 
-    def count_window_branches():
-        """The same for kernel A on the pallas path: each corr_window call
-        also counts its live items and those its dot grid holds (the
-        kernel's rule, ops/corr_pallas.py:window_union), by level (map
-        height). Returns the counts {H: [live, union grid]} and an undo."""
+    def count_union_branches(name):
+        """The same for kernel A or B (name "corr_window" or "corr_sw_fused")
+        on its path: each call of its wrapper also counts its live items and
+        those its dot grid holds (the kernel's rule, ops/corr_pallas.py:
+        window_union), by level (map height). Returns the counts {H: [live,
+        union grid]} and an undo."""
         from dpvo_tpu_torch.ops import corr_pallas as cp
 
-        real, counts = cp.corr_window, {}
+        real, counts = getattr(cp, name), {}
 
-        def counted(f1, fmap, jj, valid, sy, sx):
+        def counted(f1, fmap, jj, valid, y, x, *epi):
             live = valid & (jj >= 0) & (jj < fmap.shape[0])
+            # B's windows at (syc + dy, sxc + dxw)
+            union = (cp.window_union(y[:, None] + epi[0], x[:, None] + epi[1]) if epi
+                     else cp.window_union(y, x))
             c = counts.setdefault(fmap.shape[1], torch.zeros(2, dtype=torch.long, device="cuda"))
-            c.add_(torch.stack([live.sum(), (cp.window_union(sy, sx)[-1] & live).sum()]))
-            return real(f1, fmap, jj, valid, sy, sx)
+            c.add_(torch.stack([live.sum(), (union[-1] & live).sum()]))
+            return real(f1, fmap, jj, valid, y, x, *epi)
 
-        cp.corr_window = counted
-        return counts, lambda: setattr(cp, "corr_window", real)
+        setattr(cp, name, counted)
+        return counts, lambda: setattr(cp, name, real)
 
     launches, ates = {}, {}
     for impl, ks in IMPL_KERNELS.items():
-        # kernel A's branches are counted up to the profiled frames
-        window, undo = count_window_branches() if impl == "pallas" else (None, None)
+        # kernel A's and B's branches are counted up to the profiled frames
+        union, undo = (count_union_branches(UNION_KERNELS[impl]) if impl in UNION_KERNELS
+                       else (None, None))
         slam, poses, launches[impl], sec = run(impl, 5 if impl in IMPL_PROFILED else 0, undo)
-        if window:
-            print(f"CORR_IMPL={impl}: kernel A's branches over frames 0-{IMPL_FRAMES - 6}, "
-                  "kernel's rule: " + ", ".join(
+        if union:
+            print(f"CORR_IMPL={impl}: {UNION_KERNELS[impl]}'s branches over frames 0-"
+                  f"{IMPL_FRAMES - 6}, kernel's rule: " + ", ".join(
                       f"union grid {g} of {n} live items at level {lvl} (per-pixel {n - g})"
                       for lvl, (n, g) in enumerate(
-                          (window[h].tolist() for h in sorted(window, reverse=True)), 1)))
+                          (union[h].tolist() for h in sorted(union, reverse=True)), 1)))
         if not slam.is_initialized or not np.isfinite(poses).all():
             raise AssertionError(f"CORR_IMPL={impl}: no initialization or non-finite poses")
         missing = [k for k in ks + PATH_KERNELS if launches[impl][k] == 0]
@@ -610,12 +666,37 @@ def phase_corr_impls(torch, kernels):
         if ate > IMPL_ATE_FACTOR * ates["xla"]:
             raise AssertionError(f"CORR_IMPL={impl}: ATE {ate:.5f} above {IMPL_ATE_FACTOR} x "
                                  f"the exact run's {ates['xla']:.5f}")
+
+    # the main path with PIPELINE_DEPTH 3: each keyframe decision applied
+    # three frames late, as the JAX tracker applies it
+    cfg = load_config(os.path.join(ROOT, "config", "default.yaml"),
+                      overrides={"PIPELINE_DEPTH": 3})
+    slam = DPVO(cfg, os.path.join(ROOT, "weights", "vonet_synth.npz"), 480, 640)
+    kernels.reset_launches()
+    deepest, init_delta = 0, None
+    for t, image in enumerate(frames):
+        slam(t, image, scene.intrinsics.copy())
+        deepest = max(deepest, len(slam._inflights))
+        if slam.is_initialized and init_delta is None:
+            init_delta = len(slam.delta)  # after it, only a cull adds to delta
+    poses, _ = slam.terminate()
+    depth3 = dict(kernels.LAUNCHES)
+    culls = len(slam.delta) - (init_delta or 0)
+    print(f"PIPELINE_DEPTH=3: {IMPL_FRAMES} frames, decisions pending at most {deepest}, "
+          f"culls {culls}, keyframes {slam.n}, ATE {ate_rmse(poses[:, :3], gt[:, :3]):.5f}, "
+          f"launches { {k: v for k, v in depth3.items() if v} }")
+    missing = [k for k in IMPL_KERNELS["xla"] + PATH_KERNELS if depth3[k] == 0]
+    if not slam.is_initialized or deepest != 3 or culls == 0 or missing \
+            or not np.isfinite(poses).all() or poses.shape != (IMPL_FRAMES, 7):
+        raise AssertionError("PIPELINE_DEPTH=3: no initialization, no pipeline, no cull, "
+                             f"kernels not launched ({missing}) or bad poses")
     return launches
 
 
-def _print_profile(prof, wall_ms, n):
-    """Device time by kernel over n profiled frames (profiler wall time
-    includes its own overhead; the busy share is kernel time / wall)."""
+def _print_profile(prof, wall_ms, n, top=15):
+    """Device time by kernel over n profiled frames, the `top` costliest by
+    name (profiler wall time includes its own overhead; the busy share is
+    kernel time / wall)."""
     from torch.autograd import DeviceType
 
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -626,10 +707,10 @@ def _print_profile(prof, wall_ms, n):
     print(f"profile over {n} frames: wall {wall_ms / n:.3f} ms/frame, kernel time "
           f"{busy_us / 1e3 / n:.3f} ms/frame (busy {100 * busy_us / 1e3 / wall_ms:.1f}%), "
           f"{sum(e.count for e in evs) / n:.0f} kernel launches/frame")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/frame {e.count / n:7.1f}/frame  "
               f"{e.key[:100]}")
-    for name in ("window_union_kernel", "v3_fused_kernel"):  # kernels A and C+D
+    for name in ("window_union_kernel", "sw_fused_kernel", "v3_fused_kernel"):  # A, B, C+D
         mine = [e for e in evs if name in e.key]
         if mine:
             print(f"  {name}: {sum(e.self_device_time_total for e in mine) / 1e3 / n:.4f} "
@@ -644,7 +725,7 @@ def _sync(dst, src):
     for f in dst.state.__dataclass_fields__:
         getattr(dst.state, f).copy_(getattr(src.state, f))
     dst.topo = copy.deepcopy(src.topo)
-    for attr in ("is_initialized", "counter", "tlist", "tstamps", "delta"):
+    for attr in ("is_initialized", "counter", "tlist", "tstamps", "delta", "_inflights"):
         setattr(dst, attr, copy.deepcopy(getattr(src, attr)))
 
 
@@ -670,13 +751,14 @@ SMALL_FRAME_RTOL = {"patches": 1e-4, "intrinsics": 1e-6, "imap": 1e-4, "gmap": 1
                     "target_inac": 0.01, "weight_inac": 0.02}
 
 
-def small_path():
-    """The tiny configuration, its scene, draws and frames."""
+def small_path(**overrides):
+    """The tiny configuration (with overrides of its fields), its scene,
+    draws and frames."""
     from dpvo_tpu_torch import DPVO
     from dpvo_tpu_torch.config import Config
     from dpvo_tpu_torch.utils.synthetic import PlaneScene
 
-    cfg = Config(**SMALL_CFG)
+    cfg = Config(**dict(SMALL_CFG, **overrides))
     ht, wd, n_frames = 48, 64, 24
     scene = PlaneScene(ht=ht, wd=wd, n_frames=n_frames, depth=5.0, seed=9002, tstep=0.3,
                        rstep=0.008)
@@ -830,7 +912,7 @@ def main():
         "spd_solve": ("dpvo_tpu_torch/csrc/spd_solve.cu", "dpvo_tpu/ba/spd_solve.py:81",
                       launches),
         "corr_window": (cp_src, f"{cp_tpu}:188", impl_launches["pallas"]),
-        "corr_sw": (cp_src, f"{cp_tpu}:336", impl_launches["pallas_sw"]),
+        "corr_sw_fused": (cp_src, f"{cp_tpu}:336", impl_launches["pallas_sw"]),
         "corr_v3_fused": (cp_src, f"{cp_tpu}:620, {cp_tpu}:552", impl_launches["pallas_dma"]),
     }
     rows = []

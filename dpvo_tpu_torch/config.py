@@ -9,10 +9,11 @@ pose system and the depth reduction by them, so both packages solve the
 same padded problems. ``CORR_IMPL`` selects the correlation variant as
 in the JAX tracker (``runtime/steps.py:StepFunctions``): ``auto`` and
 ``xla`` the exact windows, ``pallas``, ``pallas_sw``, ``pallas_dma`` and
-``pallas_fused`` the functions of the JAX kernels of those names. The
-TPU-only pipelining knobs (``PIPELINE_DEPTH``, ``E_BUCKETS``) are
-accepted so the same YAML files load, and are ignored: the port applies
-the keyframe decision inline and runs on the live edge count.
+``pallas_fused`` the functions of the JAX kernels of those names.
+``PIPELINE_DEPTH`` and ``KEYFRAME_SYNC`` time the keyframe decisions as
+in the JAX tracker (``runtime/dpvo.py``). The TPU-only ``E_BUCKETS`` is
+accepted so the same YAML files load, and is ignored: the port runs on
+the live edge count.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ class Config:
     # ---- keyframing ----
     KEYFRAME_INDEX: int = 4
     KEYFRAME_THRESH: float = 12.5
-    KEYFRAME_SYNC: bool = False          # accepted, ignored (always inline)
-    PIPELINE_DEPTH: int = 1              # accepted, ignored (always inline)
+    KEYFRAME_SYNC: bool = False          # decide right after each frame
+    PIPELINE_DEPTH: int = 1              # steady frames whose decision is pending
 
     # ---- motion model ----
     MOTION_MODEL: str = "DAMPED_LINEAR"

@@ -3,7 +3,7 @@
 //
 // Replaces four TPU kernels of dpvo_tpu/ops/corr_pallas.py:
 //   A    _make_kernel     (pallas_call at :188, _corr_level)    dpvo_corr_window
-//   B    _make_kernel_sw  (pallas_call at :336, _corr_level_sw) dpvo_corr_superwindow_sw
+//   B    _make_kernel_sw  (pallas_call at :336, _corr_level_sw) dpvo_corr_sw_fused
 //   C+D  _make_kernel_v3  (pallas_call at :620, _corr_level_v3) and
 //        _make_epi_kernel (pallas_call at :552, _epi_pallas)    dpvo_corr_v3_fused
 //
@@ -19,7 +19,13 @@
 //        (each pixel's exact 8x8 window; the TPU emits an 8-aligned 8x16
 //        strip per pixel, a sublane rule, from which XLA selects the same
 //        values: the port emits the window itself)
-//   B:   out[e, p, r*32 + c] = f1[e,p] . map[jj, syc[e] + r, sxc[e] + c]  (14 x 32)
+//   B:   level_sw's output [E, 9, 64]: the dots of the 14 x 32 superwindow
+//        s at (syc, sxc), then per pixel its 8 x 8 window of s at (dy, dxw)
+//        (dy in [0, 6], dxw in [0, 24], as sw_inputs clamps them) and the
+//        2x2 bilinear o = ((w00 a + w01 b) + w10 c) + w11 d in f32, the
+//        weights ((1 - dyf) (1 - dxf)) vf and so on, each product and sum
+//        rounded as torch's separate ops round them (no FMA contraction);
+//        the last row and column zero, one round to bf16.
 //   C+D: level_v3's output [E, 9, 64]: C's dots over the 16 x 24
 //        superwindow s at (syc, sxc), then D, the v3 epilogue, per pixel:
 //        9 row taps (the row one-hot merged with the y-bilinear; each
@@ -29,7 +35,9 @@
 //        pixel mask; f32 accumulation), of which the kept 7 x 7 outputs
 //        (last row and column zero).
 //
-// The fact the fused kernel rests on. Of D's taps only a = dy, dy + 1 and
+// The fact the fused kernels rest on. B's bilinear reads only each pixel's
+// 8 x 8 window (tests/test_torch_corr_impls.py::
+// test_sw_window_is_the_live_region). Of D's taps only a = dy, dy + 1 and
 // b = dxw, dxw + 1 carry weight (dy in [0, 7], dxw in [0, 15], as the
 // wrapper's v3_inputs clamps them); the others add +-0, which changes no
 // value where s is finite (at most the sign of a zero). So the kept output
@@ -38,7 +46,7 @@
 // dxw). tests/test_torch_corr_impls.py::test_v3_window_is_the_live_region
 // shows it on the plain versions.
 //
-// What bounds A and C+D on an H100. Per (edge, level) 9 x 64 outputs, 2 x
+// What bounds A, B and C+D on an H100. Per (edge, level) 9 x 64 outputs, 2 x
 // 9 x 64 x C operations (C = 128: ~11 GFLOP a call at the steady state's
 // 37k edges, ~11 us on the bf16 tensor cores); the bytes their function
 // needs are the frames the edges touch, the patch rows, the per-edge
@@ -51,15 +59,16 @@
 // the margin), and the part no tile count removes (geometry, patch rows,
 // epilogue, launch) is ~0.1 ms.
 //
-// Design of A and C+D (the kernels before them computed A's 9 pixels'
+// Design of A, B and C+D (the kernels before them computed A's 9 pixels'
 // windows as 72 tiles of 8 positions, keeping one row of each 16-row tile,
-// and C's whole 16 x 24 superwindow as 48 tiles, written to memory for a
-// second kernel, D, to read back):
+// C's whole 16 x 24 superwindow as 48 tiles, written to memory for a
+// second kernel, D, to read back, and B's whole 14 x 32 superwindow as 56
+// tiles, written to memory for torch's selection and bilinear):
 // - One warp per (edge, level) item, four items per 128-thread block, no
 //   block barrier. The warp loads the edge's 9 patch rows into registers
 //   once as mma A fragments (rows 9..15 zero).
-// - Lanes 0..8 read the 9 pixel windows' corners (A: sy, sx; C+D: syc +
-//   dy, sxc + dxw) and the warp reduces them to the union rectangle,
+// - Lanes 0..8 read the 9 pixel windows' corners (A: sy, sx; B, C+D: syc
+//   + dy, sxc + dxw) and the warp reduces them to the union rectangle,
 //   uh x uw positions. The dots of the union's positions are computed
 //   once: tiles of 8 consecutive positions of the row-major union (~13
 //   tiles at level 1 and ~11 at level 2 for pixels 1 px apart, against 72
@@ -71,31 +80,33 @@
 //   [9][kGridPitch] (6.5 KB; the pitch makes the tile stores conflict-
 //   free), holding a union of up to kGridPos = 352 positions (44 tiles).
 //   The epilogue reads each pixel's window from the grid: A copies it (one
-//   16-byte store per window row), C+D applies D's live taps with D's
-//   rounding points (__fmul_rn / __fadd_rn, a bf16 round after every row
-//   tap) and writes the kept 7 x 7 (one 16-byte store per output row).
+//   16-byte store per window row), B applies level_sw's bilinear and C+D
+//   D's live taps, each with its reference's rounding points (__fmul_rn /
+//   __fadd_rn; C+D a bf16 round after every row tap), and write the kept 7
+//   x 7 (one 16-byte store per output row).
 // - A union larger than the grid (A's pixels spread apart by depth or
-//   rotation; C+D's union, at most 15 x 23 = 345 positions, always fits)
-//   takes the per-pixel branch of the same warp: per pixel and window row
-//   one tile of 8 positions, of which only the pixel's row is kept, into
-//   the grid with pitch 8. The choice is geometry alone
+//   rotation; B's, up to 14 x 32 positions, when its windows spread over
+//   more than 25 columns at 14 rows; C+D's, at most 15 x 23 = 345, always
+//   fits) takes the per-pixel branch of the same warp: per pixel and
+//   window row one tile of 8 positions, of which only the pixel's row is
+//   kept, into the grid with pitch 8. The choice is geometry alone
 //   (ops/corr_pallas.py:window_union applies the rule).
 // - Block count: E / 4 blocks per launch (one per item before), one launch
 //   per level as the level functions call them. No block barrier and 26 KB
 //   of static shared memory per block; the registers (the A fragments and
-//   three B tiles) bound the warps an SM holds. A
-//   persistent grid or both levels in one block would save only what the
-//   fixed part holds (~0.1 ms a call), not the L2 reads, which are the
-//   rest, so the kernel stays one warp per item.
-// Each dot is the chain of mma accumulations of tile_dots (same channel
-// order, same k-step order, one bf16 round), and the epilogues round where
-// D rounds: A's windows and C+D's output equal the per-pixel-tile A and D
-// after the full superwindow C value for value (scripts/corr_digest.py).
-//
-// B (later work: the same union-window template; its raw superwindow
-// feeds only torch's selection and bilinear): one 128-thread block (4
-// warps) per edge, tiles of 8 superwindow columns x 16 rows, every row
-// stored.
+//   three B tiles) bound the warps an SM holds at C >= 128 (113 registers
+//   a thread), and shared memory with them below: a grid that holds B's
+//   whole superwindow (448 positions, 32 KB a block) measured 13% slower
+//   at C = 32 and no faster at C = 128 (PERF.md). A persistent grid or
+//   both levels in one block would save only what the fixed part holds
+//   (~0.1 ms a call), not the L2 reads, which are the rest, so the kernel
+//   stays one warp per item.
+// Each dot is the chain of mma accumulations of mma_tile (the channel
+// order above, k-steps in order, one bf16 round), whichever 8 positions
+// share its tile, and the epilogues round where their references round:
+// A's windows, B's and C+D's outputs equal those of the kernels before
+// them (per-pixel tiles for A; the full superwindow, then torch's
+// bilinear for B or D for C+D) value for value (scripts/corr_digest.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,9 +119,9 @@ namespace {
 
 constexpr int kP2 = 9;  // patch pixels
 constexpr int kWin = 8;  // a pixel's window is kWin x kWin
-constexpr int kTileThreads = 128;
-constexpr int kRS3 = 16, kCS3 = 24;  // the v3 superwindow
-constexpr int kItemWarps = 4;        // A, C+D: items (one warp each) per block
+constexpr int kRS = 14, kCS = 32;    // the sw superwindow (B)
+constexpr int kRS3 = 16, kCS3 = 24;  // the v3 superwindow (C+D)
+constexpr int kItemWarps = 4;        // items (one warp each) per block
 constexpr int kGridPos = 352;        // union positions a warp's dot grid holds
 constexpr int kGridPitch = 360;      // its row pitch (bf16): conflict-free tile stores
 constexpr unsigned kFull = 0xffffffffu;
@@ -188,17 +199,6 @@ __device__ __forceinline__ void mma_tile(const uint32_t (&a)[KS][4], const BTile
   }
 }
 
-// the dots of the 16 A rows with the 8 positions (y, x0 + n), n < 8, of map
-// slot `frame` [H, W, C = KS * 16]
-template <int KS>
-__device__ __forceinline__ void tile_dots(const uint32_t (&a)[KS][4],
-                                          const __nv_bfloat16* frame, int H, int W, int y,
-                                          int x0, int lane, float* c) {
-  BTile<KS> b;
-  load_b<KS>(frame, H, W, y, x0 + (lane >> 2), lane & 3, b);
-  mma_tile<KS>(a, b, c);
-}
-
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
 }
@@ -207,61 +207,27 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-__device__ __forceinline__ void zero_fill(__nv_bfloat16* o, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = __float2bfloat16_rn(0.f);
-}
-
-// ---------------------------------------------------- kernel B ----
-
-// the R x CW superwindow at (syc, sxc), tiles of 8 columns, all 9 rows stored
-template <int R, int CW, int KS>
-__global__ void __launch_bounds__(kTileThreads)
-superwindow_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ fmap,
-                   const int* __restrict__ jj, const uint8_t* __restrict__ valid,
-                   const int* __restrict__ syc, const int* __restrict__ sxc,
-                   __nv_bfloat16* __restrict__ out, int mem, int H, int W) {
-  static_assert(CW % 8 == 0, "superwindow columns come in tiles of 8");
-  constexpr int C = KS * 16;
-  constexpr int N = R * CW;
-  const int e = blockIdx.x;
-  __nv_bfloat16* o = out + (size_t)e * kP2 * N;
-  const int j = jj[e];
-  if (!valid[e] || j < 0 || j >= mem) {
-    zero_fill(o, kP2 * N);
-    return;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t a[KS][4];
-  load_a_all<KS>(f1 + (size_t)e * kP2 * C, lane, a);
-  const __nv_bfloat16* frame = fmap + (size_t)j * H * W * C;
-  const int y0 = syc[e], x0 = sxc[e];
-  for (int task = warp; task < R * (CW / 8); task += kTileThreads / 32) {
-    const int r = task / (CW / 8), n0 = (task % (CW / 8)) * 8;
-    float c[4];
-    tile_dots<KS>(a, frame, H, W, y0 + r, x0 + n0, lane, c);
-    store2(o + g * N + r * CW + n0 + 2 * t, c[0], c[1]);
-    if (g == 0) store2(o + 8 * N + r * CW + n0 + 2 * t, c[2], c[3]);
-  }
-}
-
-// ------------------------------------------------ kernels A and C+D ----
+// ------------------------------------------------- kernels A, B, C+D ----
 
 struct UnionArgs {
   const __nv_bfloat16* f1;    // [E, 9, C] patch rows
   const __nv_bfloat16* fmap;  // [mem, H, W, C]
   const int* jj;              // [E]
   const uint8_t* valid;       // [E]
-  const int* y;               // A: sy [E, 9]; C+D: syc [E]
-  const int* x;               // A: sx [E, 9]; C+D: sxc [E]
-  const int* dy;              // C+D: [E, 9] window offsets in the superwindow
+  const int* y;               // A: sy [E, 9]; B, C+D: syc [E]
+  const int* x;               // A: sx [E, 9]; B, C+D: sxc [E]
+  const int* dy;              // B, C+D: [E, 9] window offsets in the superwindow
   const int* dxw;
-  const float* dyf;           // C+D: [E, 9] bilinear fractions and pixel mask
+  const float* dyf;           // B, C+D: [E, 9] bilinear fractions and pixel mask
   const float* dxf;
   const float* vf;
   __nv_bfloat16* out;         // [E, 9, 64]
   int E, mem, H, W;
 };
+
+// what an item writes from its dot grid: A each pixel's raw window, B
+// level_sw's bilinear, C+D the v3 epilogue
+enum class Epi { kWindow, kSw, kV3 };
 
 // (k == a) * (1 - f) + (k == a - 1) * f, as the JAX expression rounds it
 __device__ __forceinline__ float merged_tap(int k, int a, float f) {
@@ -274,8 +240,12 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // One (edge, level) item per warp; grid: the warp's [9][kGridPitch] dot grid.
-template <bool kFused, int KS>
+template <Epi kEpi, int KS>
 __device__ __forceinline__ void union_item(const UnionArgs& A, __nv_bfloat16* grid) {
+  constexpr bool kSuper = kEpi != Epi::kWindow;  // corners from (syc, sxc) + (dy, dxw)
+  // the window offsets' ranges in the superwindow (sw_inputs, v3_inputs)
+  constexpr int kDyMax = kEpi == Epi::kSw ? kRS - kWin : kRS3 - kWin - 1;
+  constexpr int kDxMax = kEpi == Epi::kSw ? kCS - kWin : kCS3 - kWin - 1;
   constexpr int C = KS * 16;
   const int lane = threadIdx.x & 31;
   const int e = blockIdx.x * kItemWarps + (threadIdx.x >> 5);
@@ -294,11 +264,11 @@ __device__ __forceinline__ void union_item(const UnionArgs& A, __nv_bfloat16* gr
   float fy = 0.f, fx = 0.f, v = 0.f;
   if (lane < kP2) {
     const int i = e * kP2 + lane;
-    if (kFused) {
-      // dy, dxw lie in these ranges (v3_inputs clamps them); the clamp
-      // here keeps any other input inside the superwindow
-      wy = wrap_add(A.y[e], clampi(A.dy[i], 0, kRS3 - kWin - 1));
-      wx = wrap_add(A.x[e], clampi(A.dxw[i], 0, kCS3 - kWin - 1));
+    if constexpr (kSuper) {
+      // dy, dxw lie in these ranges (the wrapper's inputs clamp them); the
+      // clamp here keeps any other input inside the superwindow
+      wy = wrap_add(A.y[e], clampi(A.dy[i], 0, kDyMax));
+      wx = wrap_add(A.x[e], clampi(A.dxw[i], 0, kDxMax));
       fy = A.dyf[i];
       fx = A.dxf[i];
       v = A.vf[i];
@@ -369,7 +339,7 @@ __device__ __forceinline__ void union_item(const UnionArgs& A, __nv_bfloat16* gr
   for (int i0 = 0; i0 < kP2 * kWin; i0 += 32) {
     const int i = i0 + lane, p = min(i >> 3, kP2 - 1), r = i & 7;
     const __nv_bfloat16* w = grid + p * kGridPitch + __shfl_sync(kFull, off, p) + r * pitch;
-    if (!kFused) {
+    if constexpr (kEpi == Epi::kWindow) {
       if (i < kP2 * kWin)
         o[i] = make_uint4(pack2(w[0], w[1]), pack2(w[2], w[3]), pack2(w[4], w[5]),
                           pack2(w[6], w[7]));
@@ -378,8 +348,35 @@ __device__ __forceinline__ void union_item(const UnionArgs& A, __nv_bfloat16* gr
     const float pfy = __shfl_sync(kFull, fy, p), pfx = __shfl_sync(kFull, fx, p);
     const float pv = __shfl_sync(kFull, v, p);
     if (i >= kP2 * kWin) continue;
-    uint4 res = make_uint4(0, 0, 0, 0);
-    if (r < kWin - 1) {
+    float val[kWin];
+    val[kWin - 1] = 0.f;
+    if (r == kWin - 1) {
+      o[i] = make_uint4(0, 0, 0, 0);  // the last output row is zero
+      continue;
+    }
+    if constexpr (kEpi == Epi::kSw) {
+      // level_sw: o = ((w00 a + w01 b) + w10 c) + w11 d over window rows r
+      // (a, b) and r + 1 (c, d), columns c and c + 1, f32, each product
+      // and sum rounded as torch's separate ops round them (no FMA), the
+      // weights as _bilinear_weights forms them
+      const float oy = __fsub_rn(1.f, pfy), ox = __fsub_rn(1.f, pfx);
+      const float w00 = __fmul_rn(__fmul_rn(oy, ox), pv);
+      const float w01 = __fmul_rn(__fmul_rn(oy, pfx), pv);
+      const float w10 = __fmul_rn(__fmul_rn(pfy, ox), pv);
+      const float w11 = __fmul_rn(__fmul_rn(pfy, pfx), pv);
+      float top[kWin], bot[kWin];
+#pragma unroll
+      for (int c = 0; c < kWin; ++c) {
+        top[c] = __bfloat162float(w[c]);
+        bot[c] = __bfloat162float(w[pitch + c]);
+      }
+#pragma unroll
+      for (int c = 0; c < kWin - 1; ++c) {
+        float acc = __fadd_rn(__fmul_rn(w00, top[c]), __fmul_rn(w01, top[c + 1]));
+        acc = __fadd_rn(acc, __fmul_rn(w10, bot[c]));
+        val[c] = __fadd_rn(acc, __fmul_rn(w11, bot[c + 1]));
+      }
+    } else {
       // D's row stage at columns dxw .. dxw + 7 of output row r: the live
       // taps a = dy (window row r) and a = dy + 1 (row r + 1), each product
       // and running sum rounded to bf16 (merged_tap(k, a) depends only on
@@ -398,7 +395,6 @@ __device__ __forceinline__ void union_item(const UnionArgs& A, __nv_bfloat16* gr
       // order, f32; outputs 0..6 kept, 7 zero
       const float w0 = __fmul_rn(merged_tap(0, 0, pfx), pv);
       const float w1 = __fmul_rn(merged_tap(0, 1, pfx), pv);
-      float val[kWin];
 #pragma unroll
       for (int c = 0; c < kWin - 1; ++c) {
         float acc = 0.f;
@@ -406,30 +402,34 @@ __device__ __forceinline__ void union_item(const UnionArgs& A, __nv_bfloat16* gr
         acc = __fadd_rn(acc, __fmul_rn(w1, tmp[c + 1]));
         val[c] = acc;
       }
-      val[kWin - 1] = 0.f;
-      uint32_t q[4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const __nv_bfloat162 b = __floats2bfloat162_rn(val[2 * h], val[2 * h + 1]);
-        q[h] = *reinterpret_cast<const uint32_t*>(&b);
-      }
-      res = make_uint4(q[0], q[1], q[2], q[3]);
     }
-    o[i] = res;
+    uint32_t q[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(val[2 * h], val[2 * h + 1]);
+      q[h] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    o[i] = make_uint4(q[0], q[1], q[2], q[3]);
   }
 }
 
-// two kernels of one body, so that a profile names them apart
+// three kernels of one body, so that a profile names them apart
 template <int KS>
 __global__ void __launch_bounds__(32 * kItemWarps) window_union_kernel(const UnionArgs args) {
   __shared__ __align__(16) __nv_bfloat16 grids[kItemWarps][kP2 * kGridPitch];
-  union_item<false, KS>(args, grids[threadIdx.x >> 5]);
+  union_item<Epi::kWindow, KS>(args, grids[threadIdx.x >> 5]);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(32 * kItemWarps) sw_fused_kernel(const UnionArgs args) {
+  __shared__ __align__(16) __nv_bfloat16 grids[kItemWarps][kP2 * kGridPitch];
+  union_item<Epi::kSw, KS>(args, grids[threadIdx.x >> 5]);
 }
 
 template <int KS>
 __global__ void __launch_bounds__(32 * kItemWarps) v3_fused_kernel(const UnionArgs args) {
   __shared__ __align__(16) __nv_bfloat16 grids[kItemWarps][kP2 * kGridPitch];
-  union_item<true, KS>(args, grids[threadIdx.x >> 5]);
+  union_item<Epi::kV3, KS>(args, grids[threadIdx.x >> 5]);
 }
 
 // calls f(std::integral_constant<int, KS>) for the channel counts the port
@@ -445,9 +445,8 @@ int by_channels(int C, F&& f) {
   }
 }
 
-template <bool kFused, int KS>
-int launch_union(const UnionArgs& a, void* stream) {
-  auto kernel = kFused ? v3_fused_kernel<KS> : window_union_kernel<KS>;
+template <class Kernel>
+int launch_union(Kernel kernel, const UnionArgs& a, void* stream) {
   if (a.E > 0)
     kernel<<<(a.E + kItemWarps - 1) / kItemWarps, 32 * kItemWarps, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -462,22 +461,32 @@ extern "C" int dpvo_corr_window(const void* f1, const void* fmap, const void* jj
                        (const uint8_t*)valid, (const int*)sy, (const int*)sx, nullptr, nullptr,
                        nullptr, nullptr, nullptr, (__nv_bfloat16*)out, E, mem, H, W};
   return by_channels(C, [&](auto ks) {
-    return launch_union<false, decltype(ks)::value>(a, stream);
+    return launch_union(window_union_kernel<decltype(ks)::value>, a, stream);
   });
 }
 
-extern "C" int dpvo_corr_superwindow_sw(const void* f1, const void* fmap, const void* jj,
-                                        const void* valid, const void* syc, const void* sxc,
-                                        void* out, int E, int mem, int H, int W, int C,
-                                        void* stream) {
+// B and C+D's arguments: the superwindow corner (syc, sxc) [E], the
+// pixels' window offsets (dy, dxw) and bilinear terms (dyf, dxf, vf) [E, 9]
+static UnionArgs superwindow_args(const void* f1, const void* fmap, const void* jj,
+                                  const void* valid, const void* syc, const void* sxc,
+                                  const void* dy, const void* dxw, const void* dyf,
+                                  const void* dxf, const void* vf, void* out, int E, int mem,
+                                  int H, int W) {
+  return {(const __nv_bfloat16*)f1, (const __nv_bfloat16*)fmap, (const int*)jj,
+          (const uint8_t*)valid, (const int*)syc, (const int*)sxc, (const int*)dy,
+          (const int*)dxw, (const float*)dyf, (const float*)dxf, (const float*)vf,
+          (__nv_bfloat16*)out, E, mem, H, W};
+}
+
+extern "C" int dpvo_corr_sw_fused(const void* f1, const void* fmap, const void* jj,
+                                  const void* valid, const void* syc, const void* sxc,
+                                  const void* dy, const void* dxw, const void* dyf,
+                                  const void* dxf, const void* vf, void* out, int E, int mem,
+                                  int H, int W, int C, void* stream) {
+  const UnionArgs a = superwindow_args(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf, out,
+                                       E, mem, H, W);
   return by_channels(C, [&](auto ks) {
-    if (E > 0)
-      superwindow_kernel<14, 32, decltype(ks)::value>
-          <<<E, kTileThreads, 0, (cudaStream_t)stream>>>(
-              (const __nv_bfloat16*)f1, (const __nv_bfloat16*)fmap, (const int*)jj,
-              (const uint8_t*)valid, (const int*)syc, (const int*)sxc, (__nv_bfloat16*)out, mem,
-              H, W);
-    return (int)cudaGetLastError();
+    return launch_union(sw_fused_kernel<decltype(ks)::value>, a, stream);
   });
 }
 
@@ -486,11 +495,9 @@ extern "C" int dpvo_corr_v3_fused(const void* f1, const void* fmap, const void* 
                                   const void* dy, const void* dxw, const void* dyf,
                                   const void* dxf, const void* vf, void* out, int E, int mem,
                                   int H, int W, int C, void* stream) {
-  const UnionArgs a = {(const __nv_bfloat16*)f1, (const __nv_bfloat16*)fmap, (const int*)jj,
-                       (const uint8_t*)valid, (const int*)syc, (const int*)sxc, (const int*)dy,
-                       (const int*)dxw, (const float*)dyf, (const float*)dxf, (const float*)vf,
-                       (__nv_bfloat16*)out, E, mem, H, W};
+  const UnionArgs a = superwindow_args(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf, out,
+                                       E, mem, H, W);
   return by_channels(C, [&](auto ks) {
-    return launch_union<true, decltype(ks)::value>(a, stream);
+    return launch_union(v3_fused_kernel<decltype(ks)::value>, a, stream);
   });
 }

@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"corr": 0, "segsum": 0, "segsum_bf16": 0, "spd_solve": 0, "corr_window": 0,
-            "corr_sw": 0, "corr_v3_fused": 0}
+            "corr_sw_fused": 0, "corr_v3_fused": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,8 +43,8 @@ _SIGNATURES = {
     "dpvo_corr_features": [_VP] * 8 + [_I] * 10 + [_VP],
     # f1, fmap, jj, valid, corner y, corner x, out, E, mem, H, W, C, stream
     "dpvo_corr_window": [_VP] * 7 + [_I] * 5 + [_VP],
-    "dpvo_corr_superwindow_sw": [_VP] * 7 + [_I] * 5 + [_VP],
     # f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf, out, E, mem, H, W, C, stream
+    "dpvo_corr_sw_fused": [_VP] * 12 + [_I] * 5 + [_VP],
     "dpvo_corr_v3_fused": [_VP] * 12 + [_I] * 5 + [_VP],
     # payload, kd, order, out, E, K, Md, is_bf16, stream
     "dpvo_segment_sum": [_VP] * 4 + [_I] * 4 + [_VP],

@@ -16,8 +16,10 @@ JAX namesake does, rounding points included:
   zero outside the image; zero for invalid edges):
 
   ``pallas``      kernel A, each pixel's exact D x D window;
-  ``pallas_sw``   kernel B, one RS x CS = 14 x 32 superwindow per edge,
-                  anchored at the centre pixel, shared by its 9 pixels;
+  ``pallas_sw``   kernel B, the dots of the RS x CS = 14 x 32 superwindow
+                  anchored at the centre pixel, shared by its 9 pixels,
+                  with the window selection and the 2x2 bilinear fused:
+                  one launch writes the level's output;
   ``pallas_dma``  kernel C+D, the dots of the RS3 x CS3 = 16 x 24
                   superwindow that its pixels' windows reach, with v3's
                   tap-stencil epilogue fused (its row stage rounded to bf16
@@ -25,12 +27,11 @@ JAX namesake does, rounding points included:
                   writes the level's output, the raw superwindow never
                   reaches memory;
 
-- the window selection and the 2x2 bilinear reduction of A and B follow
-  in torch (XLA in JAX; gathers here, not the TPU's one-hot stacks).
+- A's 2x2 bilinear reduction follows in torch (XLA in JAX).
 
-Kernels A and C+D compute each (edge, level)'s dots once over the union
-of its 9 pixels' windows (``window_union`` gives A's rule for the union
-that its grid holds; C+D's always fits).
+Each kernel computes an (edge, level)'s dots once over the union of its
+9 pixels' windows (``window_union`` gives the rule for the union that
+its grid holds: A's and B's may not fit, C+D's always does).
 
 The superwindow variants clamp each pixel's window into the superwindow
 (within +-3 px of the patch centre), as the TPU kernels do. The
@@ -50,7 +51,7 @@ from dpvo_tpu_torch import kernels
 from dpvo_tpu_torch.ops.corr import CS3, RS3, clamp_into_superwindow, pixel_mask, window_corners
 
 RS, CS = 14, 32  # the pallas_sw superwindow (corr_pallas.py:259-260)
-UNION_POS = 352  # union positions kernel A's dot grid holds (csrc/corr_pallas.cu: kGridPos)
+UNION_POS = 352  # union positions a kernel's dot grid holds (csrc/corr_pallas.cu: kGridPos)
 _BF16 = torch.bfloat16
 
 
@@ -88,7 +89,7 @@ def corr_window_plain(f1, fmap, jj, valid, sy, sx, D: int = 8, chunk: int = 256)
 
 
 def superwindow_plain(f1, fmap, jj, valid, syc, sxc, R: int, Cw: int, chunk: int = 256):
-    """Kernels B and C's function: out[e, p, r*Cw + c] = bf16(f1[e, p] .
+    """The dots of kernels B and C: out[e, p, r*Cw + c] = bf16(f1[e, p] .
     fmap[jj[e], syc[e] + r, sxc[e] + c]) for the R x Cw superwindow at
     (syc, sxc) [E] -> [E, P2, R*Cw] bf16."""
     E = f1.shape[0]
@@ -137,11 +138,49 @@ def corr_v3_fused_plain(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf):
     return out.reshape(E, P2, 64)
 
 
+def _select(s4, dy, dxw, D: int):
+    """sw[e, p, u, v] = s4[e, p, dy + u, dxw + v] (gathers)."""
+    off = torch.arange(D, device=s4.device)
+    rows = torch.take_along_dim(s4, (dy.long()[..., None] + off)[..., None], dim=2)
+    cols = (dxw.long()[..., None] + off)[:, :, None, :].expand(-1, -1, D, -1)
+    return torch.take_along_dim(rows, cols, dim=3)
+
+
+def bilinear_sw(sw, dyf, dxf, vf):
+    """``_corr_level_sw``'s 2x2 bilinear reduction (corr_pallas.py:376-384)
+    of each pixel's window sw [E, P2, D, D] f32 -> [E, P2, D*D] bf16, the
+    last row and column zero."""
+    E, P2, D, _ = sw.shape
+    w00, w01, w10, w11 = (w[..., None] for w in _bilinear_weights(dyf, dxf, vf))
+    o = (w00 * sw[..., :D - 1, :D - 1] + w01 * sw[..., :D - 1, 1:]
+         + w10 * sw[..., 1:, :D - 1] + w11 * sw[..., 1:, 1:])
+    o = torch.nn.functional.pad(o, (0, 1, 0, 1))
+    return o.reshape(E, P2, D * D).to(_BF16)
+
+
+def epilogue_sw_plain(s, dy, dxw, dyf, dxf, vf):
+    """``_corr_level_sw``'s epilogue (corr_pallas.py:366-384): s [E, P2,
+    RS*CS] bf16, each pixel's 8 x 8 window of it at (dy, dxw) [E, P2] and
+    its 2x2 bilinear -> [E, P2, 64] bf16."""
+    E, P2, _ = s.shape
+    return bilinear_sw(_select(s.float().reshape(E, P2, RS, CS), dy, dxw, 8), dyf, dxf, vf)
+
+
+def corr_sw_fused_plain(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf):
+    """Kernel B's function, ``level_sw``'s output: the 14 x 32
+    superwindow's dots at (syc, sxc) [E], then ``epilogue_sw_plain`` ->
+    [E, P2, 64] bf16 (dy, dxw, dyf, dxf, vf [E, P2] as ``sw_inputs`` makes
+    them)."""
+    s = superwindow_plain(f1, fmap, jj, valid, syc, sxc, RS, CS)
+    return epilogue_sw_plain(s, dy, dxw, dyf, dxf, vf)
+
+
 def window_union(sy, sx, D: int = 8):
-    """Kernel A's geometry per edge, from the window corners sy, sx [E,
-    P2]: the union of the pixels' D x D windows, corner (y0, x0) and size
-    (uh, uw) int64 [E], and whether the kernel computes it from its dot
-    grid (``UNION_POS`` positions) rather than by its per-pixel branch."""
+    """A kernel's geometry per edge, from its pixels' window corners sy, sx
+    [E, P2] (B and C+D: syc + dy, sxc + dxw): the union of the D x D
+    windows, corner (y0, x0) and size (uh, uw) int64 [E], and whether the
+    kernel computes it from its dot grid (``UNION_POS`` positions) rather
+    than by its per-pixel branch."""
     y0, x0 = sy.long().amin(1), sx.long().amin(1)
     uh, uw = sy.long().amax(1) - y0 + D, sx.long().amax(1) - x0 + D
     return y0, x0, uh, uw, uh * uw <= UNION_POS
@@ -186,21 +225,35 @@ def corr_window(f1, fmap, jj, valid, sy, sx):
     return out
 
 
-def superwindow_sw(f1, fmap, jj, valid, syc, sxc):
-    """Kernel B (``CORR_IMPL=pallas_sw``): the 14 x 32 superwindow of raw
-    dots at (syc, sxc) [E] for all 9 pixels -> [E, 9, 448] bf16."""
-    if f1.device.type == "cpu":
-        return superwindow_plain(f1, fmap, jj, valid, syc, sxc, RS, CS)
-    _check("corr_sw", f1, fmap, jj, valid, (syc, sxc))
+def _superwindow_fused(name, args):
+    """Launch kernel B or C+D (entry point ``dpvo_<name>``) on the card."""
+    f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf = args
+    _check(name, f1, fmap, jj, valid, (syc, sxc, dy, dxw))
     E, P2, C = f1.shape
     mem, H, W, _ = fmap.shape
-    out = torch.empty((E, P2, RS * CS), dtype=_BF16, device=f1.device)
-    rc = kernels.load().dpvo_corr_superwindow_sw(
-        f1.data_ptr(), fmap.data_ptr(), jj.data_ptr(), valid.data_ptr(), syc.data_ptr(),
-        sxc.data_ptr(), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
-    kernels.check("corr_sw", rc)
-    kernels.LAUNCHES["corr_sw"] += 1
+    if syc.shape != (E,) or sxc.shape != (E,) or any(
+            t.shape != (E, P2) for t in (dy, dxw, dyf, dxf, vf)):
+        raise ValueError(f"{name}: syc/sxc must be [E] and dy/dxw/dyf/dxf/vf [E, 9]")
+    if any(t.dtype != torch.float32 for t in (dyf, dxf, vf)):
+        raise ValueError(f"{name}: dyf/dxf/vf must be f32")
+    kernels.require_cuda(name, f1, dyf, dxf, vf)
+    out = torch.empty((E, P2, 64), dtype=_BF16, device=f1.device)
+    rc = getattr(kernels.load(), "dpvo_" + name)(
+        *(t.data_ptr() for t in args), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
+    kernels.check(name, rc)
+    kernels.LAUNCHES[name] += 1
     return out
+
+
+def corr_sw_fused(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf):
+    """Kernel B (``CORR_IMPL=pallas_sw``): one level's output [E, 9, 64]
+    bf16; see ``corr_sw_fused_plain``. On the card syc, sxc [E] and dy,
+    dxw [E, 9] are int32 (dy in [0, 6], dxw in [0, 24], as ``sw_inputs``
+    clamps them), dyf, dxf, vf [E, 9] f32."""
+    args = (f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf)
+    if f1.device.type == "cpu":
+        return corr_sw_fused_plain(*args)
+    return _superwindow_fused("corr_sw_fused", args)
 
 
 def corr_v3_fused(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf):
@@ -208,25 +261,10 @@ def corr_v3_fused(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf):
     64] bf16; see ``corr_v3_fused_plain``. On the card syc, sxc [E] and
     dy, dxw [E, 9] are int32 (dy in [0, 7], dxw in [0, 15], as
     ``v3_inputs`` clamps them), dyf, dxf, vf [E, 9] f32."""
+    args = (f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf)
     if f1.device.type == "cpu":
-        return corr_v3_fused_plain(f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf)
-    _check("corr_v3_fused", f1, fmap, jj, valid, (syc, sxc, dy, dxw))
-    E, P2, C = f1.shape
-    mem, H, W, _ = fmap.shape
-    if syc.shape != (E,) or sxc.shape != (E,) or any(
-            t.shape != (E, P2) for t in (dy, dxw, dyf, dxf, vf)):
-        raise ValueError("corr_v3_fused: syc/sxc must be [E] and dy/dxw/dyf/dxf/vf [E, 9]")
-    if any(t.dtype != torch.float32 for t in (dyf, dxf, vf)):
-        raise ValueError("corr_v3_fused: dyf/dxf/vf must be f32")
-    kernels.require_cuda("corr_v3_fused", f1, dyf, dxf, vf)
-    out = torch.empty((E, P2, 64), dtype=_BF16, device=f1.device)
-    rc = kernels.load().dpvo_corr_v3_fused(
-        f1.data_ptr(), fmap.data_ptr(), jj.data_ptr(), valid.data_ptr(), syc.data_ptr(),
-        sxc.data_ptr(), dy.data_ptr(), dxw.data_ptr(), dyf.data_ptr(), dxf.data_ptr(),
-        vf.data_ptr(), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
-    kernels.check("corr_v3_fused", rc)
-    kernels.LAUNCHES["corr_v3_fused"] += 1
-    return out
+        return corr_v3_fused_plain(*args)
+    return _superwindow_fused("corr_v3_fused", args)
 
 
 # ---------------- the level functions ----------------
@@ -294,28 +332,15 @@ def level_window(fmap, f1, cs, jj, vs, radius: int):
     return (o * keep).to(_BF16)
 
 
-def _select(s4, dy, dxw, D: int):
-    """sw[e, p, u, v] = s4[e, p, dy + u, dxw + v] (gathers)."""
-    off = torch.arange(D, device=s4.device)
-    rows = torch.take_along_dim(s4, (dy.long()[..., None] + off)[..., None], dim=2)
-    cols = (dxw.long()[..., None] + off)[:, :, None, :].expand(-1, -1, D, -1)
-    return torch.take_along_dim(rows, cols, dim=3)
-
-
 def level_sw(fmap, f1, cs, jj, vs, radius: int):
     """``_corr_level_sw`` (corr_pallas.py:305-384): one level through the
-    14 x 32 superwindow, per-pixel windows clamped into it."""
-    E, P2, _ = f1.shape
+    14 x 32 superwindow, per-pixel windows clamped into it, and the 2x2
+    bilinear, in one kernel (B)."""
     _, H, W, _ = fmap.shape
-    D = 2 * radius + 2
-    corner, (dy, dxw, dyf, dxf, vf) = sw_inputs(cs, vs, H, W, radius)
-    s = superwindow_sw(f1, fmap, jj, vs, *corner)
-    sw = _select(s.float().reshape(E, P2, RS, CS), dy, dxw, D)
-    w00, w01, w10, w11 = (w[..., None] for w in _bilinear_weights(dyf, dxf, vf))
-    o = (w00 * sw[..., :D - 1, :D - 1] + w01 * sw[..., :D - 1, 1:]
-         + w10 * sw[..., 1:, :D - 1] + w11 * sw[..., 1:, 1:])
-    o = torch.nn.functional.pad(o, (0, 1, 0, 1))
-    return o.reshape(E, P2, D * D).to(_BF16)
+    if radius != 3:
+        raise ValueError("pallas_sw's kernel is built for CORR_RADIUS=3 (8 x 8 windows)")
+    corner, epi = sw_inputs(cs, vs, H, W, radius)
+    return corr_sw_fused(f1, fmap, jj, vs, *corner, *epi)
 
 
 def level_v3(fmap, f1, cs, jj, vs, radius: int):

@@ -2,14 +2,26 @@
 ``dpvo_tpu/runtime/dpvo.py``.
 
 Sequencing: patchify -> ingest -> (motion probe until initialized) ->
-edge append -> update (operator + sliding-window BA) -> keyframe cull
-and edge retirement. The keyframe decision is applied inline, before the
-next frame, which gives the trajectory of the JAX runtime at
-``PIPELINE_DEPTH=1``. Loop closure is not ported yet.
+edge append -> update (operator + sliding-window BA) -> keyframe flow
+magnitude; the keyframe cull and edge retirement it decides follow later.
+
+The JAX tracker keeps up to ``PIPELINE_DEPTH`` steady frames in flight
+and applies each frame's keyframe decision when it drains that frame: at
+the start of a later call, once ``PIPELINE_DEPTH`` frames are pending,
+with the frame count of that moment (``dpvo_tpu/runtime/dpvo.py:
+_drain_one``). The port computes each frame synchronously, but applies
+the same decisions at the same moments, so it tracks the JAX trajectory
+at every depth: a steady frame queues its flow magnitude with the frame
+count and the pose pair of its dispatch, and ``__call__`` decides from
+the queue's head. ``KEYFRAME_SYNC`` decides right after the frame, as
+the reference DPVO does; ``terminate``, the non-steady branch of
+``__call__`` and ``update()`` drain the queue first, as the JAX
+tracker's ``_flush_pending`` does. Loop closure is not ported yet.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -83,6 +95,9 @@ class DPVO:
         self.tlist = []      # wall timestamps per frame
         self.tstamps = []    # counter value per kept keyframe
         self.delta = {}      # counter -> (anchor counter, rel pose np[7])
+        # steady frames whose keyframe decision is pending: (flow magnitude,
+        # n at dispatch, poses[n - KEYFRAME_INDEX - 1 : n - KEYFRAME_INDEX + 1])
+        self._inflights = deque()
 
     @property
     def n(self) -> int:
@@ -113,6 +128,11 @@ class DPVO:
         if tuple(image.shape[:2]) != (self.ht, self.wd):
             raise ValueError(f"frame size {tuple(image.shape[:2])} != ({self.ht}, {self.wd}) "
                              "the tracker was built for")
+        # retire frames beyond the pipeline depth: apply their decisions
+        while len(self._inflights) >= max(cfg.PIPELINE_DEPTH, 1):
+            self._drain_one()
+        if not self.is_initialized:  # the JAX tracker's non-fused branch
+            self._drain()
 
         self.tlist.append(float(tstamp))
         if len(self.tstamps) == self.n:
@@ -147,7 +167,7 @@ class DPVO:
             for _ in range(12):
                 self.update()
         elif self.is_initialized:
-            self.update()
+            self._update()  # the steady frame: no drain, as the JAX fused step
             self.keyframe()
 
     def _append(self, kk, jj):
@@ -176,6 +196,12 @@ class DPVO:
 
     @torch.no_grad()
     def update(self):
+        """One optimization round outside the steady frame (initialization,
+        terminate): the pending keyframe decisions are applied first."""
+        self._drain()
+        self._update()
+
+    def _update(self):
         if len(self.topo.ii) == 0:
             return
         cfg = self.cfg
@@ -190,7 +216,8 @@ class DPVO:
     @torch.no_grad()
     def keyframe(self):
         """Mean flow between frames n-KI-1 and n-KI+1 in both directions,
-        then the cull / retirement decision."""
+        queued with n and the pose pair of a cull of frame n-KI; the
+        cull / retirement decision is applied when the queue drains it."""
         cfg = self.cfg
         i = self.n - cfg.KEYFRAME_INDEX - 1
         j = self.n - cfg.KEYFRAME_INDEX + 1
@@ -204,14 +231,34 @@ class DPVO:
                 continue
             mags.append(self.steps._flowmag_pair(self.state, t(np.full(len(kk), a)),
                                                  t(np.full(len(kk), b)), t(kk), 0.5))
-        self._keyframe_decide(float((mags[0] + mags[1]) / 2))
+        # one fetch, as the JAX step's out_small: the magnitude and the pair
+        small = torch.cat([((mags[0] + mags[1]) / 2).reshape(1),
+                           self.state.poses[i:i + 2].reshape(-1)]).cpu()
+        self._inflights.append((float(small[0]), self.n, small[1:].reshape(2, 7)))
+        if cfg.KEYFRAME_SYNC:
+            self._drain()
 
-    def _keyframe_decide(self, m: float):
+    def _drain_one(self):
+        """Apply the oldest pending keyframe decision with the current
+        frame count. Its pose pair indexes rows of the dispatch-time count:
+        it holds only if no frame was added or culled since (always at depth
+        1 or with KEYFRAME_SYNC); otherwise the rows are read now."""
+        m, n_disp, pair = self._inflights.popleft()
+        self._keyframe_decide(m, pose_pair=pair if n_disp == self.n else None)
+
+    def _drain(self):
+        while self._inflights:
+            self._drain_one()
+
+    def _keyframe_decide(self, m: float, pose_pair=None):
+        """Cull keyframe n-KI if the flow magnitude m is below threshold,
+        then retire edges beyond the removal window. pose_pair [2, 7] is
+        poses[k-1:k+1] of the cull's k, read here when not given."""
         cfg = self.cfg
         M = cfg.PATCHES_PER_FRAME
         if m < cfg.KEYFRAME_THRESH:
             k = self.n - cfg.KEYFRAME_INDEX
-            pair = self.state.poses[k - 1:k + 1].cpu()
+            pair = pose_pair if pose_pair is not None else self.state.poses[k - 1:k + 1].cpu()
             dP = se3.mul(pair[1], se3.inv(pair[0])).numpy()
             self.delta[self.tstamps[k]] = (self.tstamps[k - 1], dP)
             # drop edges touching frame k (not stored), renumber, shift buffers
@@ -247,9 +294,10 @@ class DPVO:
 
     @torch.no_grad()
     def terminate(self) -> Tuple[np.ndarray, np.ndarray]:
-        """12 final update rounds; returns camera-to-world poses [T,7] for
-        every frame (culled ones through their relative-pose chain) and
-        the timestamps."""
+        """12 final update rounds (the first applies the pending keyframe
+        decisions); returns camera-to-world poses [T,7] for every frame
+        (culled ones through their relative-pose chain) and the
+        timestamps."""
         for _ in range(12):
             self.update()
         poses_kf = self.state.poses[: self.n].cpu().numpy()

@@ -10,12 +10,24 @@ of the patches spread 3-6 px; 22 frames of a [36, 120, 160, 128] and a
 [36, 30, 40, 128] bf16 map). Printed: kernel A's raw windows per level
 (``corr_window``) and the two-level features of every CORR_IMPL the port's
 ``ops/corr_pallas.py`` and ``ops/corr_cuda.py`` serve.
+
+    python3 scripts/corr_digest.py [--root CHECKOUT] --path CORR_IMPL
+
+also tracks chip_smoke.py's 480x640 scene for 30 frames with that
+CORR_IMPL on the checkout (config/default.yaml, weights/vonet_synth.npz),
+prints the digest of the trajectory and the profile of the last 5 frames
+(device time by kernel), so that a path's kernels can be profiled on a
+checkout whose own chip_smoke.py does not.
 """
 
 import argparse
 import hashlib
+import importlib.util
 import os
 import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def phase2_inputs(torch, C=128, seed=5):
@@ -44,9 +56,12 @@ def phase2_inputs(torch, C=128, seed=5):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ap.add_argument("--root", default=os.path.dirname(HERE),
                     help="checkout whose dpvo_tpu_torch is imported")
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--path", metavar="CORR_IMPL",
+                    help="also track the 480x640 scene with this CORR_IMPL and profile it")
+    opts = ap.parse_args()
+    root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
     import torch
 
@@ -73,7 +88,39 @@ def main():
     print(f"xla {digest(corr_features(*args))}")
     print(f"pallas_fused {digest(corr_features(*args, clamp=True))}")
     torch.cuda.synchronize()
+    if opts.path:
+        track(torch, root, opts.path, digest)
     return 0
+
+
+def track(torch, root, impl, digest, n_frames=30, n_prof=5):
+    """The CORR_IMPL path on chip_smoke.py's 480x640 scene (phase 4's run),
+    the last n_prof frames under the profiler; prints the profile (this
+    script's chip_smoke.py prints it) and the digest of the trajectory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpvo_tpu_torch import DPVO, load_config
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    scene, frames = smoke.render_main_scene(n_frames)
+    cfg = load_config(os.path.join(root, "config", "default.yaml"), overrides={"CORR_IMPL": impl})
+    slam = DPVO(cfg, os.path.join(root, "weights", "vonet_synth.npz"), 480, 640)
+    for t in range(n_frames - n_prof):
+        slam(t, frames[t], scene.intrinsics.copy())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(n_frames - n_prof, n_frames):
+            slam(t, frames[t], scene.intrinsics.copy())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"CORR_IMPL={impl} path, the last {n_prof} of {n_frames} frames:")
+    smoke._print_profile(prof, wall_ms, n_prof, top=25)
+    poses, _ = slam.terminate()
+    print(f"CORR_IMPL={impl} trajectory {digest(torch.as_tensor(poses))}")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""What holds kernels A and C+D (csrc/corr_pallas.cu): their device time
-per correlation call (both levels, the profiler) on chip_smoke.py phase
-2's geometry at C = 32, 64, 128 and 256 channels, beside the tiles of 8
-union positions they compute and the bytes those tiles read (C x 2 bytes a
-position; an item of A's per-pixel branch reads 72 tiles).
+"""What holds kernels A, B and C+D (csrc/corr_pallas.cu): their device
+time per correlation call (both levels, the profiler) on chip_smoke.py
+phase 2's geometry at C = 32, 64, 128 and 256 channels, beside the tiles
+of 8 union positions they compute and the bytes those tiles read (C x 2
+bytes a position; an item of a per-pixel branch reads 72 tiles).
 
     python3 scripts/corr_union_probe.py
 
@@ -31,18 +31,23 @@ def main():
     for C in (32, 64, 128, 256):
         gmap, fmap1, fmap2, coords, ii1, jj1, valid = phase2_inputs(torch, C)
         f1, cs, jj, vs, _ = cp.sort_edges(gmap, coords, ii1, jj1, valid)
-        levels, tiles = [], {"A": 0, "C+D": 0}
+        levels, tiles = [], {"A": 0, "B": 0, "C+D": 0}
         for fmap, scale in ((fmap1, 1.0), (fmap2, 4.0)):
             _, H, W, _ = fmap.shape
             win, _ = cp.window_inputs(cs / scale, vs, H, W, 3)
-            (syc, sxc), epi = cp.v3_inputs(cs / scale, vs, H, W, 3)
-            levels.append((fmap, win, (syc, sxc) + epi))
+            lv = {"A": win}
+            for name, inputs in (("B", cp.sw_inputs), ("C+D", cp.v3_inputs)):
+                (syc, sxc), epi = inputs(cs / scale, vs, H, W, 3)
+                lv[name] = (syc, sxc) + epi
+                *_, uh, uw, fits = cp.window_union(syc[:, None] + epi[0], sxc[:, None] + epi[1])
+                tiles[name] += int(torch.where(fits, (uh * uw + 7) // 8, 72)[vs].sum())
             *_, uh, uw, fits = cp.window_union(*win)
             tiles["A"] += int(torch.where(fits, (uh * uw + 7) // 8, 72)[vs].sum())
-            *_, uh, uw, _ = cp.window_union(syc[:, None] + epi[0], sxc[:, None] + epi[1])
-            tiles["C+D"] += int(((uh * uw + 7) // 8)[vs].sum())
-        runs = {"A": lambda: [cp.corr_window(f1, m, jj, vs, *w) for m, w, _ in levels],
-                "C+D": lambda: [cp.corr_v3_fused(f1, m, jj, vs, *v) for m, _, v in levels]}
+            levels.append((fmap, lv))
+        kern = {"A": cp.corr_window, "B": cp.corr_sw_fused, "C+D": cp.corr_v3_fused}
+        runs = {name: (lambda fn=fn, name=name: [fn(f1, m, jj, vs, *lv[name])
+                                                 for m, lv in levels])
+                for name, fn in kern.items()}
         items = 2 * int(vs.sum())
         for name, fn in runs.items():
             ms = chip_smoke.device_ms(fn, 20)

@@ -167,6 +167,57 @@ def test_v3_window_is_the_live_region(dy, dxw):
     assert (want[vf == 0] == 0).all() and (want != 0).any()
 
 
+@pytest.mark.parametrize("dy,dxw", [(None, None), (0, 0), (0, 24), (6, 0), (6, 24)],
+                         ids=["random", "0-0", "0-24", "6-0", "6-24"])
+def test_sw_window_is_the_live_region(dy, dxw):
+    """The fact kernel B rests on: corr_sw_fused_plain, the function it
+    computes, equals the composition level_sw had before the kernel took
+    its epilogue (the 14 x 32 superwindow's dots, _select's gathers, the
+    2x2 bilinear), equals it with the superwindow zeroed outside each
+    pixel's 8 x 8 window at (dy, dxw), and equals the bilinear of the dots
+    of that window alone, which is what the kernel computes: at random
+    offsets and at the ends of their ranges, with bilinear fractions 0 and
+    1 among them, masked pixels and invalid edges. Integer features make
+    every dot exact, so torch.equal."""
+    rng = np.random.default_rng(27 if dy is None else 10 * dy + dxw)
+    E, C, H, W = 96, 32, 24, 32
+    feat = lambda *sh: torch.as_tensor(rng.integers(-3, 4, sh), dtype=torch.bfloat16)
+    f1, fmap = feat(E, 9, C), feat(4, H, W, C)
+    jj = torch.as_tensor(rng.integers(0, 4, E), dtype=torch.int32)
+    valid = torch.as_tensor(rng.uniform(size=E) > 0.2)
+    syc = torch.as_tensor(rng.integers(-16, H + 1, E), dtype=torch.int32)
+    sxc = torch.as_tensor(rng.integers(-2, W // 8 + 1, E) * 8, dtype=torch.int32)
+    full = lambda v, hi: torch.as_tensor(rng.integers(0, hi + 1, (E, 9)) if v is None
+                                         else np.full((E, 9), v), dtype=torch.int32)
+    dy_t, dxw_t = full(dy, tcp.RS - 8), full(dxw, tcp.CS - 8)
+    frac = lambda: torch.as_tensor(np.where(rng.uniform(size=(E, 9)) < 0.3,
+                                            rng.integers(0, 2, (E, 9)),
+                                            rng.uniform(size=(E, 9))), dtype=torch.float32)
+    dyf, dxf = frac(), frac()
+    vf = torch.as_tensor(rng.uniform(size=(E, 9)) > 0.2, dtype=torch.float32)
+
+    def composed(s):  # level_sw before the fusion
+        sw = tcp._select(s.float().reshape(E, 9, tcp.RS, tcp.CS), dy_t, dxw_t, 8)
+        w00, w01, w10, w11 = (w[..., None, None] for w in (((1 - dyf) * (1 - dxf)) * vf,
+                                                     ((1 - dyf) * dxf) * vf,
+                                                     (dyf * (1 - dxf)) * vf, (dyf * dxf) * vf))
+        o = (w00 * sw[..., :7, :7] + w01 * sw[..., :7, 1:] + w10 * sw[..., 1:, :7]
+             + w11 * sw[..., 1:, 1:])
+        return torch.nn.functional.pad(o, (0, 1, 0, 1)).reshape(E, 9, 64).to(torch.bfloat16)
+
+    s = tcp.superwindow_plain(f1, fmap, jj, valid, syc, sxc, tcp.RS, tcp.CS)
+    want = composed(s)
+    got = tcp.corr_sw_fused(f1, fmap, jj, valid, syc, sxc, dy_t, dxw_t, dyf, dxf, vf)
+    assert torch.equal(got, want)
+    r, c = torch.arange(tcp.RS)[:, None], torch.arange(tcp.CS)[None, :]
+    live = ((r >= dy_t[..., None, None]) & (r < dy_t[..., None, None] + 8)
+            & (c >= dxw_t[..., None, None]) & (c < dxw_t[..., None, None] + 8))
+    assert torch.equal(composed(s * live.reshape(E, 9, -1)), want)
+    win = tcp.corr_window_plain(f1, fmap, jj, valid, syc[:, None] + dy_t, sxc[:, None] + dxw_t)
+    assert torch.equal(tcp.bilinear_sw(win.float().reshape(E, 9, 8, 8), dyf, dxf, vf), want)
+    assert (want[vf == 0] == 0).all() and (want[~valid] == 0).all() and (want != 0).any()
+
+
 @pytest.mark.parametrize("geometry", ["patch", "spread", "far"])
 def test_window_union_rule(geometry):
     """Kernel A's union rule (ops/corr_pallas.py:window_union): every
@@ -174,7 +225,9 @@ def test_window_union_rule(geometry):
     dot grid when it holds at most UNION_POS positions, the kernel's own
     constant; pixels 1 px apart always fit, 5 px apart take both branches,
     and so do coordinates at +-1e10 (window_inputs clips the corners to the
-    map's border)."""
+    map's border). Kernel B's union, from its windows clamped into the
+    14 x 32 superwindow, lies in that superwindow, and for pixels 1 px
+    apart fits the grid."""
     cu = (Path(tcp.__file__).parents[1] / "csrc" / "corr_pallas.cu").read_text()
     assert int(re.search(r"kGridPos = (\d+);", cu).group(1)) == tcp.UNION_POS
     gmap, fmap1, fmap2, coords, ii1, jj1, valid = _torch(make_inputs(18, E=256,
@@ -193,6 +246,14 @@ def test_window_union_rule(geometry):
             assert fits.any() and not fits.all()
         elif geometry == "far" and scale == 1.0:
             assert not fits[:8].all()
+        (syc, sxc), (dy, dxw, *_) = tcp.sw_inputs(coords.reshape(-1, 9, 2) / scale, valid, H, W,
+                                                  3)
+        y0, x0, uh, uw, fits = tcp.window_union(syc[:, None] + dy, sxc[:, None] + dxw)
+        assert ((y0 >= syc) & (y0 + uh <= syc + tcp.RS)).all()
+        assert ((x0 >= sxc) & (x0 + uw <= sxc + tcp.CS)).all()
+        assert torch.equal(fits, uh * uw <= tcp.UNION_POS)
+        if geometry == "patch":
+            assert fits.all()
 
 
 @pytest.mark.parametrize("impl", list(IMPLS) + ["pallas_fused"])

@@ -146,11 +146,10 @@ def _patch_coords(E, H, W, g, spread):
     return base + spread[:, None, None] * off + torch.rand(E, 9, 2, generator=g)
 
 
-def _tile_inputs(C, E=300, mem=5, H=24, W=32, seed=0):
-    """Kernels A and B's inputs: A's window corners of patches 1 px apart
-    (first half: its union branch), 6 px apart (next quarter: its
-    per-pixel branch) and anywhere (last quarter); B's superwindow corners
-    around and beyond the map."""
+def _window_inputs(C, E=300, mem=5, H=24, W=32, seed=0):
+    """Kernel A's inputs: window corners of patches 1 px apart (first half:
+    its union branch), 6 px apart (next quarter: its per-pixel branch) and
+    anywhere (last quarter)."""
     g = torch.Generator().manual_seed(seed)
     f1, fmap, jj, valid = _features(C, E, mem, H, W, g)
     spread = torch.where(torch.arange(E) < E // 2, 1.0, 6.0)
@@ -159,60 +158,109 @@ def _tile_inputs(C, E=300, mem=5, H=24, W=32, seed=0):
         [W + 16.0, H + 16.0]) - 8
     sy = torch.floor(coords[..., 1]).to(torch.int32) - 3
     sx = torch.floor(coords[..., 0]).to(torch.int32) - 3
-    syc = torch.randint(-16, H + 1, (E,), generator=g, dtype=torch.int32)
-    sxc = torch.randint(-2, W // 8 + 1, (E,), generator=g, dtype=torch.int32) * 8
-    return f1, fmap, jj, valid, (sy, sx), (syc, sxc)
+    return f1, fmap, jj, valid, (sy, sx)
 
 
 @pytest.mark.parametrize("C", [32, 64, 128, 256])
-@pytest.mark.parametrize("name", ["corr_window", "corr_sw"])
-def test_corr_tile_kernels_match_plain(dev, name, C):
-    """Kernels A and B (tensor-core dots, f32 accumulation) against their
-    plain versions: one bf16 ulp, plus f32 accumulation error where a value
+def test_corr_window_kernel_matches_plain(dev, C):
+    """Kernel A (tensor-core dots, f32 accumulation) against its plain
+    version: one bf16 ulp, plus f32 accumulation error where a value
     cancels (the tensor cores sum in their own order). A takes both of its
     branches: the union of patches 1 px apart from its dot grid, spread
     patches by per-pixel tiles."""
     from dpvo_tpu_torch import kernels
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
-    f1, fmap, jj, valid, win, sup = _tile_inputs(C)
-    fn = {"corr_window": cp.corr_window, "corr_sw": cp.superwindow_sw}[name]
-    corners = win if name == "corr_window" else sup
-    if name == "corr_window":
-        fits = cp.window_union(*win)[-1]
-        assert fits[:150].all() and not fits[150:225].any()
-    want = fn(f1, fmap, jj, valid, *corners).float()
-    before = kernels.LAUNCHES[name]
-    got = fn(*(t.to(dev) for t in (f1, fmap, jj, valid) + corners)).float().cpu()
+    f1, fmap, jj, valid, win = _window_inputs(C)
+    fits = cp.window_union(*win)[-1]
+    assert fits[:150].all() and not fits[150:225].any()
+    want = cp.corr_window(f1, fmap, jj, valid, *win).float()
+    before = kernels.LAUNCHES["corr_window"]
+    got = cp.corr_window(*(t.to(dev) for t in (f1, fmap, jj, valid) + win)).float().cpu()
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES[name] == before + 1
+    assert kernels.LAUNCHES["corr_window"] == before + 1
     assert got.shape == want.shape and (got[~valid] == 0).all()
     tol = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 2e-3
     assert ((got - want).abs() <= tol).all()
 
 
-def _v3_case(C, E=400, mem=5, H=24, W=32, seed=0):
-    """Kernel C+D's inputs from v3_inputs on patches 1 px apart and, on a
-    fifth of the edges, 5 px apart (the +-3 px clamp bites), integer
-    features (exact dots: the kernel's values are the plain version's)."""
+def _super_case(name, C, E=400, mem=5, H=24, W=32, seed=0, integer=True):
+    """Kernel B's (name "corr_sw_fused") or C+D's ("corr_v3_fused") inputs
+    from sw_inputs / v3_inputs on patches 1 px apart and, on a fifth of the
+    edges, 5 px apart (the clamps bite); integer features (exact dots: the
+    kernel's values are the plain version's) or Gaussian ones. For B, every
+    fourth edge has its pixels' windows spread over the whole 14 x 32
+    superwindow (dy 0 / 3 / 6 x dxw 0 / 12 / 24), a union of 448 positions:
+    its per-pixel branch."""
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
     g = torch.Generator().manual_seed(seed)
-    f1, fmap, jj, valid = _features(C, E, mem, H, W, g, integer=True)
+    f1, fmap, jj, valid = _features(C, E, mem, H, W, g, integer=integer)
     spread = torch.where(torch.rand(E, generator=g) < 0.2, 5.0, 1.0)
-    corner, epi = cp.v3_inputs(_patch_coords(E, H, W, g, spread), valid, H, W, 3)
-    return (f1, fmap, jj, valid) + corner + epi
+    inputs = cp.sw_inputs if name == "corr_sw_fused" else cp.v3_inputs
+    corner, (dy, dxw, *bilinear) = inputs(_patch_coords(E, H, W, g, spread), valid, H, W, 3)
+    if name == "corr_sw_fused":
+        p, wide = torch.arange(9), (torch.arange(E) % 4 == 3)[:, None]
+        dy = torch.where(wide, (p // 3 * 3).int(), dy)
+        dxw = torch.where(wide, (p % 3 * 12).int(), dxw)
+        fits = cp.window_union(corner[0][:, None] + dy, corner[1][:, None] + dxw)[-1]
+        assert fits[valid].any() and not fits[valid].all()  # both branches
+    return (f1, fmap, jj, valid) + corner + (dy, dxw, *bilinear)
 
 
-def _fused_on_card(args, dev):
+def _fused_on_card(args, dev, name="corr_v3_fused"):
     from dpvo_tpu_torch import kernels
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
-    before = kernels.LAUNCHES["corr_v3_fused"]
-    got = cp.corr_v3_fused(*(t.to(dev) for t in args)).cpu()
+    before = kernels.LAUNCHES[name]
+    got = getattr(cp, name)(*(t.to(dev) for t in args)).cpu()
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["corr_v3_fused"] == before + 1
+    assert kernels.LAUNCHES[name] == before + 1
     return got
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+def test_corr_sw_fused_kernel_matches_plain(dev, C):
+    """Kernel B against its plain version (the 14 x 32 superwindow's dots,
+    each pixel's window, the 2x2 bilinear), on both of its branches (the
+    union from its dot grid, and per-pixel windows): on integer features the dots
+    are exact and the bilinear rounds where torch rounds and contracts
+    nothing into FMAs, so the same bits; on Gaussian features the tensor
+    cores and the plain f32 einsum sum in other orders, which flips a rare
+    raw dot by one bf16 ulp: within that ulp carried through the bilinear
+    (the bilinear of the raw dots' magnitudes bounds it), as C+D is held."""
+    from dpvo_tpu_torch.ops import corr_pallas as cp
+
+    args = _super_case("corr_sw_fused", C)
+    want = cp.corr_sw_fused(*args)
+    got = _fused_on_card(args, dev, "corr_sw_fused")
+    assert got.shape == (400, 9, 64) and torch.equal(got, want)
+    assert (want != 0).any()
+    args = _super_case("corr_sw_fused", C, seed=1, integer=False)
+    f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf = args
+    want = cp.corr_sw_fused(*args).float()
+    got = _fused_on_card(args, dev, "corr_sw_fused").float()
+    s = cp.superwindow_plain(f1, fmap, jj, valid, syc, sxc, cp.RS, cp.CS).abs()
+    env = cp.epilogue_sw_plain(s, dy, dxw, dyf, dxf, vf).float()
+    assert ((got - want).abs() <= 2.0 ** -6 * env + 2.0 ** -7 * want.abs() + 2e-3).all()
+
+
+@pytest.mark.parametrize("dy,dxw", [(0, 0), (0, 24), (6, 0), (6, 24)])
+def test_corr_sw_fused_kernel_boundary_cases(dev, dy, dxw):
+    """Kernel B at the ends of its window offsets, with bilinear fractions 0
+    and 1 and masked pixels: torch.equal to its plain version."""
+    from dpvo_tpu_torch.ops import corr_pallas as cp
+
+    f1, fmap, jj, valid, syc, sxc, _, _, _, _, vf = _super_case("corr_sw_fused", 128, E=64,
+                                                                seed=10 * dy + dxw)
+    g = torch.Generator().manual_seed(dy + dxw)
+    full = lambda v: torch.full((64, 9), v, dtype=torch.int32)
+    frac = torch.tensor([0.0, 1.0, 0.5, 0.25])[torch.randint(0, 4, (64, 9), generator=g)]
+    vf = vf * (torch.rand(64, 9, generator=g) > 0.3).float()
+    args = (f1, fmap, jj, valid, syc, sxc, full(dy), full(dxw), frac, frac.flip(0), vf)
+    want = cp.corr_sw_fused(*args)
+    assert torch.equal(_fused_on_card(args, dev, "corr_sw_fused"), want)
+    assert (want[vf == 0] == 0).all() and (want != 0).any()
 
 
 @pytest.mark.parametrize("C", [32, 64, 128, 256])
@@ -223,7 +271,7 @@ def test_corr_v3_fused_kernel_matches_plain(dev, C):
     same bits."""
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
-    args = _v3_case(C)
+    args = _super_case("corr_v3_fused", C)
     want = cp.corr_v3_fused(*args)
     got = _fused_on_card(args, dev)
     assert got.shape == (400, 9, 64) and torch.equal(got, want)
@@ -238,7 +286,8 @@ def test_corr_v3_fused_kernel_boundary_cases(dev, dy, dxw):
     values (torch.equal)."""
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
-    f1, fmap, jj, valid, syc, sxc, _, _, _, _, vf = _v3_case(128, E=64, seed=10 * dy + dxw)
+    f1, fmap, jj, valid, syc, sxc, _, _, _, _, vf = _super_case("corr_v3_fused", 128, E=64,
+                                                                seed=10 * dy + dxw)
     g = torch.Generator().manual_seed(dy + dxw)
     full = lambda v: torch.full((64, 9), v, dtype=torch.int32)
     frac = torch.tensor([0.0, 1.0, 0.5, 0.25])[torch.randint(0, 4, (64, 9), generator=g)]
@@ -249,17 +298,17 @@ def test_corr_v3_fused_kernel_boundary_cases(dev, dy, dxw):
     assert (want[vf == 0] == 0).all()  # vf = 0 pixels are zero
 
 
-@pytest.mark.parametrize("name", ["corr_window", "corr_v3_fused"])
+@pytest.mark.parametrize("name", ["corr_window", "corr_sw_fused", "corr_v3_fused"])
 def test_corr_union_kernels_zero_invalid_edges(dev, name):
-    """Kernels A and C+D write zeros for an invalid edge and for a valid
+    """Kernels A, B and C+D write zeros for an invalid edge and for a valid
     edge whose slot jj is out of range (-1, mem)."""
     from dpvo_tpu_torch.ops import corr_pallas as cp
 
     if name == "corr_window":
-        f1, fmap, jj, valid, win, _ = _tile_inputs(128)
+        f1, fmap, jj, valid, win = _window_inputs(128)
         args = [f1, fmap, jj, valid, *win]
     else:
-        args = list(_v3_case(128))
+        args = list(_super_case(name, 128))
     mem = args[1].shape[0]
     args[3] = args[3].clone()
     args[3][:40] = True

@@ -93,15 +93,16 @@ def _requests(device):
         "spd_solve": lambda: spd_solve(torch.eye(4, device=device), t(4)),
         "corr_window": lambda: cp.corr_window(t(5, 9, 32, dtype=bf), t(2, 8, 8, 32, dtype=bf),
                                               i(5), t(5, dtype=torch.bool), i(5, 9), i(5, 9)),
-        "corr_sw": lambda: cp.superwindow_sw(t(5, 9, 32, dtype=bf), t(2, 8, 8, 32, dtype=bf),
-                                             i(5), t(5, dtype=torch.bool), i(5), i(5)),
+        "corr_sw_fused": lambda: cp.corr_sw_fused(
+            t(5, 9, 32, dtype=bf), t(2, 8, 8, 32, dtype=bf), i(5), t(5, dtype=torch.bool), i(5),
+            i(5), i(5, 9), i(5, 9), t(5, 9), t(5, 9), t(5, 9)),
         "corr_v3_fused": lambda: cp.corr_v3_fused(
             t(5, 9, 32, dtype=bf), t(2, 8, 8, 32, dtype=bf), i(5), t(5, dtype=torch.bool), i(5),
             i(5), i(5, 9), i(5, 9), t(5, 9), t(5, 9), t(5, 9)),
     }
 
 
-KERNELS = ["corr", "segsum", "segsum_bf16", "spd_solve", "corr_window", "corr_sw",
+KERNELS = ["corr", "segsum", "segsum_bf16", "spd_solve", "corr_window", "corr_sw_fused",
            "corr_v3_fused"]
 
 
@@ -120,8 +121,8 @@ def test_wrapper_never_falls_back(name, monkeypatch):
     monkeypatch.setattr(corr_cuda, "corr_features_plain", forbidden)
     monkeypatch.setattr(segsum, "segment_sum_plain", forbidden)
     monkeypatch.setattr(spd, "spd_solve_plain", forbidden)
-    for plain in ("corr_window_plain", "superwindow_plain", "epilogue_v3_plain",
-                  "corr_v3_fused_plain"):
+    for plain in ("corr_window_plain", "superwindow_plain", "epilogue_sw_plain",
+                  "epilogue_v3_plain", "corr_sw_fused_plain", "corr_v3_fused_plain"):
         monkeypatch.setattr(corr_pallas, plain, forbidden)
     with pytest.raises((ValueError, RuntimeError)):
         _requests("meta")[name]()
