@@ -14,9 +14,11 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    are printed; kernels B and C+D on Gaussian features within the raw dots'
    bf16 ulp and on integer features, also at the ends of their window
    offsets, torch.equal; segment sum: BA's f32
-   [49152, 98] into 2560 rows and SoftAgg's two bf16 [40960, 768] sums, bit
-   for bit against the plain version on the CPU; SPD solve: n = 96, forward
-   and backward). Print the error and the median time of the kernel, the plain
+   [49152, 98] into 2560 rows, SoftAgg's two bf16 [40960, 768] sums and
+   (row segsum_gba) the seven f32 reductions of a global-BA iteration at
+   phase 6's size (pose blocks [4E, 36] into nfree^2 segments, kpairs
+   [KP, 36], Fe [R, 6], ...), bit for bit against the plain version on the
+   CPU; SPD solve: n = 96, forward and backward). Print the error and the median time of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (``library_ms``): each an event pair around one call, host launch
    included (``ms``), and for the kernels also the device time of their
@@ -46,7 +48,20 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    on the CPU with the same injected draws: free-running (init state,
    keyframes, trajectory; two card runs bit for bit equal), then frame by
    frame from the same state (every buffer of the state after each
-   frame).
+   frame). Then the oracle loop-closure tracker of the CPU tests
+   (tests/test_torch_loop_closure.py: scripts/lc_ab.py's configuration,
+   128x160, 48 frames) on the card and on the CPU: the same global-BA
+   frames and loop edges, the poses within LC_SMALL_POSE_ATOL. Then the
+   sparse global BA of tests/test_ba.py's problem on the card against the
+   CPU, printed with each side's dense solve and with both solves on the
+   CPU (two card runs must give the same bits).
+6. Loop closure at full width: DPVO with config/slam.yaml (LOOP_CLOSURE)
+   and weights/vonet_synth.npz, 480x640, an out-and-back pan of LC_FRAMES
+   frames, then terminate(), twice: loop edges appended, global-BA rounds
+   run and launch segsum, finite poses, the two runs bit for bit equal.
+   Each round's edges, free poses, entries, kpairs and times, the peak
+   device memory and the ATE beside a run with LOOP_CLOSURE false are
+   printed, not gated; the largest round's solve is timed alone.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs a CUDA device and
@@ -54,6 +69,7 @@ the rest of the repository; without either it exits nonzero and prints
 no result.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -89,7 +105,7 @@ def cuda_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
-def device_ms(fn, reps, warmup=2):
+def device_ms(fn, reps, warmup=2, mixed=False):
     """Device time per call of the kernels fn() launches (profiler, summed
     over them). Beside cuda_ms's event pair, which includes the host's
     launch: for a call shorter than its launch, that times the host.
@@ -98,7 +114,10 @@ def device_ms(fn, reps, warmup=2):
     the reps launched: where fn launches the port's kernels, one each per
     wrapper call and nothing else, reps x the launches kernels.LAUNCHES
     counts in one call; where it launches none (a library call or a plain
-    version), reps x the events of one call profiled alone. The profiler
+    version), reps x the events of one call profiled alone; where it
+    launches some beside library kernels (``mixed``: a global-BA solve,
+    whose library calls launch a varying number of kernels), at least that
+    many. The profiler
     on the card sometimes drops an event (an H100 run kept 39 of 40); such
     a profile is reported and taken again, and after three incomplete
     profiles this raises."""
@@ -124,9 +143,9 @@ def device_ms(fn, reps, warmup=2):
     torch.cuda.synchronize()
     launched = sum(kernels.LAUNCHES.values()) - before
     for _ in range(3):
-        want = reps * (launched or profiled(1)[0])
+        want = reps * (profiled(1)[0] if mixed or not launched else launched)
         count, us = profiled(reps)
-        if count == want and us > 0:
+        if (count >= want if mixed else count == want) and us > 0:
             return us / 1e3 / reps
         print(f"device_ms: the profiler kept {count} kernel events of the {want} launched "
               f"({us / 1e3:.4f} ms of device time); this profile is not used")
@@ -222,6 +241,7 @@ def phase_kernels(torch, kernels):
     out.update(corr_variant_kernels(torch, args, nframes, nrows))
 
     out.update(segsum_kernels(torch, g))
+    out.update(segsum_gba_kernels(torch, g))
 
     # ---- SPD solve: the n = 96 damped pose system, forward and backward ----
     n = 96
@@ -322,6 +342,88 @@ def segsum_kernels(torch, g):
                                                    for p, kd, _, Md in calls], 10),
                          bound=bound(nbytes, kept * calls[0][0].shape[1], PEAK_F32))
     return out
+
+
+# the largest global-BA round of phase 6 as its scene's topology gives it:
+# GBA_FRAMES free keyframes of 96 patches, each patch observed in the frames
+# within GBA_REACH of its own (~115k edges, ~2.7M kpairs)
+GBA_FRAMES, GBA_REACH = 63, 10
+
+
+def gba_reductions(torch, g, dev, n=GBA_FRAMES, M=96, reach=GBA_REACH):
+    """The global BA's seven reductions (ba/gba_sparse.py:_iteration) on
+    build_sparse_indices' ids and orders for n free keyframes of M patches,
+    each patch observed in the frames within `reach` of its own, with random
+    f32 payloads of each one's width (drawn from generator g) on device dev:
+    name -> (payload, ids, order, segments), and the sizes."""
+    from dpvo_tpu_torch.ba.gba_sparse import build_sparse_indices
+
+    kk, jj = [], []
+    for i in range(n):
+        K, J = np.meshgrid(np.arange(i * M, (i + 1) * M),
+                           np.arange(max(i - reach, 0), min(i + reach + 1, n)),
+                           indexing="ij")
+        kk.append(K.ravel())
+        jj.append(J.ravel())
+    kk, jj = np.concatenate(kk), np.concatenate(jj)
+    kd = np.unique(kk, return_inverse=True)[1].reshape(-1)
+    idx = build_sparse_indices(kk // M, jj, kd, 0, n, W=n, R_MAX=1 << 23, KP_MAX=1 << 23)
+    E, R, F, KP = len(kk), len(idx["re"]), len(idx["fk"]), len(idx["p1"])
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    x = lambda rows, k: torch.randn((rows, k), generator=g, device=g.device).to(dev)
+    return {  # in the order of _iteration
+        "C, u by depth [E, 2]": (x(E, 2), t(kd), t(idx["kd_order"]), n * M),
+        "pose blocks [4E, 36]": (x(4 * E, 36), t(idx["blk_seg"]), t(idx["blk_order"]), n * n),
+        "v by pose [2E, 6]": (x(2 * E, 6), t(idx["v_seg"]), t(idx["v_order"]), n),
+        "Fe by entry [R, 6]": (x(R, 6), t(idx["r2f"]), t(idx["r2f_order"]), F),
+        # one call for all kpairs, in sorted id order as _iteration's chunks take them
+        "kpairs [KP, 36]": (x(KP, 36), t(idx["pair_seg"][idx["pair_order"]]),
+                            torch.arange(KP, dtype=torch.int32, device=dev), n * n),
+        "E Q u by pose [F, 6]": (x(F, 6), t(idx["fa"]), t(idx["fa_order"]), n),
+        "E^T dX by depth [F, 2]": (x(F, 2), t(idx["fk"]), t(idx["fk_order"]), n * M),
+    }, dict(E=E, R=R, F=F, KP=KP, nfree=n)
+
+
+def segsum_gba_kernels(torch, g):
+    """The segment sum at the global BA's shapes (its own row, segsum_gba):
+    each of the seven reductions of a Gauss-Newton iteration bit for bit
+    against the plain version on the CPU, with its device time; the seven
+    together against their bound and index_add_."""
+    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+
+    calls, sizes = gba_reductions(torch, g, torch.device("cuda"))
+    print("segsum_gba: the global BA's reductions at {nfree} free poses, E {E} edges, R {R} "
+          "rows, F {F} entries, KP {KP} kpairs".format(**sizes))
+    err = 0.0
+    for name, (p, kd, order, Md) in calls.items():
+        got = segment_sum(p, kd, order, Md).cpu()
+        want = segment_sum_plain(p.cpu(), kd.cpu(), Md)
+        err = max(err, (got - want).abs().max().item())
+        dms = device_ms(lambda: segment_sum(p, kd, order, Md), 20)
+        print(f"segsum_gba: {name} into {Md} segments: bit for bit equal to the plain version: "
+              f"{torch.equal(got, want)}; device time {dms:.5f} ms")
+        if not torch.equal(got, want):
+            raise AssertionError(f"segsum kernel disagrees with its plain version at {name}")
+    run = lambda: [segment_sum(*c) for c in calls.values()]
+    lib_args = [(p, torch.where((kd < 0) | (kd >= Md), Md, kd).long(), Md)
+                for p, kd, _, Md in calls.values()]
+    lib = lambda: [torch.zeros((Md + 1, p.shape[1]), device=p.device).index_add_(0, kd, p)
+                   for p, kd, Md in lib_args]
+    t = dict(ms=cuda_ms(run, 10), library_ms=cuda_ms(lib, 10), device_ms=device_ms(run, 10),
+             library_device_ms=device_ms(lib, 10))
+    print("segsum_gba: the seven calls: ms {ms:.5f} (index_add_ {library_ms:.5f}); device time "
+          "{device_ms:.5f} ({library_device_ms:.5f})".format(**t))
+    # the rows of ids in [0, Md) read once with their int32 id and order,
+    # the f32 outputs written once; one add per value read
+    kept = [int(((kd >= 0) & (kd < Md)).sum()) for _, kd, _, Md in calls.values()]
+    nbytes = sum(p.shape[0] * 8 + k * p.shape[1] * 4 + Md * p.shape[1] * 4
+                 for (p, _, _, Md), k in zip(calls.values(), kept))
+    flops = sum(k * p.shape[1] for (p, _, _, _), k in zip(calls.values(), kept))
+    return {"segsum_gba": dict(
+        max_abs_err=err, ms=t["ms"], library_ms=t["library_ms"], device_ms=t["device_ms"],
+        plain_ms=cuda_ms(lambda: [segment_sum_plain(p, kd, Md) for p, kd, _, Md in calls.values()],
+                         2, warmup=1),
+        bound=bound(nbytes, flops, PEAK_F32))}
 
 
 def corr_variant_kernels(torch, args, nframes, nrows):
@@ -466,6 +568,38 @@ def superwindow_kernel(torch, cp, name, f1, jj, vs, levels, feat_bytes, idx_byte
                 device_ms=device_ms(lambda: fused(kern, f1, levels), 20),
                 plain_ms=cuda_ms(lambda: fused(plain, f1, levels), 2, warmup=1),
                 library_ms=None, bound=new)
+
+
+def loop_trajectory(n_frames, span=2.4, ry=0.10):
+    """Out-and-back lateral pan with gentle yaw, frame 0 and the last frames
+    viewing the same part of the plane (world-to-camera poses [n, 7]); a
+    copy of scripts/lc_ab.py:loop_trajectory, which imports JAX."""
+    from dpvo_tpu_torch.utils.synthetic import _nse3_exp
+
+    ts = np.linspace(0, 2 * np.pi, n_frames)
+    xs = span * (1 - np.cos(ts)) / 2  # 0 -> span -> 0
+    yaw = ry * np.sin(ts)
+    return np.stack([_nse3_exp(np.array([-x, 0, 0, 0, r, 0]))
+                     for x, r in zip(xs, yaw)]).astype(np.float32)
+
+
+def scene_oracle(scene, noise=0.0, seed=0):
+    """The oracle hook for a PlaneScene: every edge's ground-truth
+    reprojection target at weight 1 (tests/test_runtime.py:make_oracle),
+    plus Gaussian noise of `noise` px at 1/4 resolution from a generator
+    seeded with `seed` (scripts/lc_ab.py's noisy oracle)."""
+    rng = np.random.default_rng(seed)
+
+    def oracle(slam, es):
+        E, c = es.count, slam.cfg.P // 2
+        xy = slam.state.patches[:, :2, c, c].cpu().numpy()  # [N*M, 2] at 1/4 res
+        row2frame = np.asarray(slam.tstamps)
+        target = scene.gt_targets(scene.poses, xy, row2frame[es.ii[:E]], row2frame[es.jj[:E]],
+                                  es.kk[:E])
+        target = target + noise * rng.standard_normal(target.shape).astype(np.float32)
+        return target, np.ones((E, 2), np.float32)
+
+    return oracle
 
 
 def render_main_scene(n_frames):
@@ -866,6 +1000,265 @@ def phase_small_parity(torch):
         raise AssertionError(f"card and CPU states disagree after a frame: {bad}")
 
 
+def gba_problem(torch, seed=3, n=6, npts=64, noise=0.5, pad=37):
+    """tests/test_ba.py:synthetic_problem's layout: every point, anchored in
+    frame 0, seen in every frame; perturbed poses and depths; invalid
+    padding edges at the end. Returns gba's first nine arguments on the
+    CPU, the valid edges' (ii, jj, kd) as numpy, n and the point count."""
+    from dpvo_tpu_torch.geom import projective as pops
+    from dpvo_tpu_torch.lie import se3
+
+    g = torch.Generator().manual_seed(seed)
+    intr = torch.tensor([[120.0, 120.0, 80.0, 60.0]]).repeat(n, 1)
+    xi = torch.cat([0.12 * torch.randn(n, 3, generator=g), 0.03 * torch.randn(n, 3, generator=g)],
+                   -1)
+    poses = [se3.identity()]
+    for i in range(1, n):
+        poses.append(se3.mul(se3.exp(xi[i]), poses[-1]))
+    poses = torch.stack(poses)
+    ctr = torch.stack([30 + 100 * torch.rand(npts, generator=g),
+                       25 + 70 * torch.rand(npts, generator=g),
+                       0.3 + 0.5 * torch.rand(npts, generator=g)], -1)
+    jj = torch.arange(n).repeat_interleave(npts)
+    kd = torch.arange(npts).repeat(n)
+    ii = torch.zeros_like(jj)
+    target = pops.transform(poses, ctr[:, :, None, None], intr, ii, jj, kd)[:, 0, 0]
+    target = target + noise * torch.randn(target.shape, generator=g)
+    poses0 = poses.clone()
+    poses0[1:, :3] += 0.05 * torch.randn(n - 1, 3, generator=g)
+    ctr0 = ctr.clone()
+    ctr0[:, 2] *= 1 + 0.15 * torch.randn(npts, generator=g)
+    E = len(ii)
+    padE = lambda a: torch.cat([a, torch.zeros((pad,) + a.shape[1:], dtype=a.dtype)])
+    weight = torch.cat([torch.ones(E, 2), torch.zeros(pad, 2)])
+    valid = torch.arange(E + pad) < E
+    return (poses0, ctr0, intr, padE(target), weight, valid, padE(ii), padE(jj),
+            padE(kd).to(torch.int32)), (ii.numpy(), jj.numpy(), kd.numpy()), n, npts
+
+
+def gba_card_vs_cpu(torch, dev="cuda"):
+    """The sparse global BA (two iterations) of gba_problem on the card and
+    on the CPU: the largest |card - CPU| of poses and depths with each
+    side's own dense solve (``own_solve``) and with the card's solve moved
+    to the CPU (``cpu_solve``, the same LAPACK Cholesky on both sides),
+    whether two card runs give the same bits, the segment sums one card
+    run launched and the largest pose step."""
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.ba import gba_sparse
+
+    args, (ii, jj, kd), n, Md = gba_problem(torch)
+    idx = gba_sparse.build_sparse_indices(ii, jj, kd, 1, n - 1, W=8, R_MAX=4096, KP_MAX=1 << 14)
+    bounds = torch.tensor([-64.0, -64.0, 224.0, 184.0])
+    run = lambda d: [x.cpu() for x in gba_sparse.gba(
+        *(a.to(d) for a in args[:9]), 1, n - 1, bounds.to(d), 1e-4,
+        gba_sparse.index_tensors(idx, d), W=8, Md=Md, iterations=2)]
+    diff = lambda a, b: tuple((x - y).abs().max().item() for x, y in zip(a, b))
+    cpu = run("cpu")
+    before = kernels.LAUNCHES["segsum"]
+    card = run(dev)
+    launches = kernels.LAUNCHES["segsum"] - before
+    again = run(dev)
+    factor, solve = torch.linalg.cholesky_ex, torch.cholesky_solve
+    torch.linalg.cholesky_ex = lambda S: tuple(x.to(S.device) for x in factor(S.cpu()))
+    torch.cholesky_solve = lambda y, L: solve(y.cpu(), L.cpu()).to(y.device)
+    try:
+        mixed = run(dev)
+    finally:
+        torch.linalg.cholesky_ex, torch.cholesky_solve = factor, solve
+    return dict(own_solve=diff(card, cpu), cpu_solve=diff(mixed, cpu),
+                repeat_equal=all(torch.equal(a, b) for a, b in zip(card, again)),
+                segsum_launches=launches, step=(cpu[0] - args[0]).abs().max().item())
+
+
+# phase 5's oracle loop-closure cell: tests/test_torch_loop_closure.py's
+# (scripts/lc_ab.py's configuration at 128x160, 48 frames, oracle noise 0.25)
+LC_SMALL_CFG = dict(SMALL_CFG, BUFFER_SIZE=192, E_MAX=4096, E_INAC_MAX=8192, M_OPT_MAX=1024,
+                    MAX_EDGE_AGE=96, KEYFRAME_THRESH=0.0, GBA_POSES_MAX=256,
+                    GBA_DEPTHS_MAX=4096, GBA_EDGES_MAX=16384, GBA_KPAIRS_MAX=1 << 18,
+                    LOOP_CLOSURE=True, GLOBAL_OPT_FREQ=10, BACKEND_THRESH=64.0)
+# Bound on |card - CPU| of that run's poses, written before its first card
+# run: each global-BA round differs by f32 summation order (the CPU tests
+# measured ~1e-5 per round between two f32 implementations), and the
+# oracle's targets pin the geometry, so the differences do not compound
+# past a few rounds' worth.
+LC_SMALL_POSE_ATOL = 1e-3
+
+
+def lc_small_run(dev):
+    """The oracle loop-closure tracker of the CPU tests on device dev: its
+    global-BA frames, its loop-edge batches and its poses."""
+    from dpvo_tpu_torch import DPVO
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.runtime import dpvo as dpvo_mod
+    from dpvo_tpu_torch.utils.synthetic import PlaneScene
+
+    ht, wd, n_frames = 128, 160, 48
+    scene = PlaneScene(ht=ht, wd=wd, n_frames=n_frames, depth=4.0, seed=5,
+                       poses=loop_trajectory(n_frames))
+    slam = DPVO(Config(**LC_SMALL_CFG), None, ht, wd, device=dev, seed=1)
+    slam.oracle = scene_oracle(scene, 0.25, seed=78)
+    slam._motion_probe = lambda: 1e9
+    batches, real = [], dpvo_mod.edges_loop
+
+    def loop(s):
+        kk, jj = real(s)
+        batches.append((s.n, kk, jj))
+        return kk, jj
+
+    dpvo_mod.edges_loop = loop
+    try:
+        for t in range(n_frames):
+            slam(t, scene.render(t), scene.intrinsics.copy())
+        poses, _ = slam.terminate()
+    finally:
+        dpvo_mod.edges_loop = real
+    return sorted(slam.ran_global_ba), [b for b in batches if len(b[1])], poses
+
+
+def phase_lc_small_parity():
+    """Oracle loop closure on the card against the CPU: the same global-BA
+    frames, the same loop edges, the poses within LC_SMALL_POSE_ATOL."""
+    (rg, rb, rp), (dg, db, dp) = lc_small_run("cpu"), lc_small_run("cuda")
+    same_edges = len(rb) == len(db) and all(
+        a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+        for a, b in zip(rb, db))
+    d_t = np.abs(dp[:, :3] - rp[:, :3]).max()
+    d_q = np.abs(np.abs(dp[:, 3:]) - np.abs(rp[:, 3:])).max()
+    print(f"oracle loop closure (48 frames, 128x160): global BA at frames {rg} (card {dg}), "
+          f"loop-edge batches at {[b[0] for b in rb]} of {[len(b[1]) for b in rb]} edges "
+          f"(card the same: {same_edges}); poses card vs CPU: positions {d_t:.3g}, "
+          f"quaternions {d_q:.3g} (bound {LC_SMALL_POSE_ATOL})")
+    if rg != dg or not rg or not same_edges or not np.isfinite(dp).all() \
+            or max(d_t, d_q) > LC_SMALL_POSE_ATOL:
+        raise AssertionError("oracle loop closure: card and CPU disagree")
+
+
+# Phase 6: config/slam.yaml at full width on an out-and-back pan of LC_SPAN m
+# at 4 m from the plane, LC_FRAMES frames: a keyframe moves ~0.15 m, so
+# frames are kept and the run passes the 22-keyframe removal window and the
+# 30-keyframe pair separation. Its H100 run (PR 7) kept 60 keyframes and
+# ran 13 global-BA rounds of up to 119136 edges, 74304 of them from the
+# inactive ring: with slam.yaml's capacities a longer run can reach
+# E_INAC_MAX + E_MAX = 180224 edges, past GBA_EDGES_MAX = 172032, and stops
+# on its assert (as the JAX tracker would).
+LC_FRAMES, LC_SPAN = 140, 10.5
+
+
+def phase_loop_closure(torch, kernels):
+    """DPV-SLAM's proximity loop closure at full width: DPVO with
+    config/slam.yaml and weights/vonet_synth.npz, 480x640. Counters zeroed
+    before and read after each run. Two runs with loop closure must append
+    loop edges, run global-BA rounds that launch segsum, give finite poses
+    and equal bits; a third with LOOP_CLOSURE false gives the ATE beside.
+    Prints each round's sizes and times, peak memory, the ATEs, and the
+    device time of the largest round's solve. Returns (segsum launches in
+    the first run's global-BA rounds, that round's solve stats)."""
+    from dpvo_tpu_torch import DPVO, load_config
+    from dpvo_tpu_torch.ba import gba_sparse
+    from dpvo_tpu_torch.lie import se3
+    from dpvo_tpu_torch.runtime import dpvo as dpvo_mod
+    from dpvo_tpu_torch.utils.synthetic import PlaneScene
+
+    scene = PlaneScene(ht=480, wd=640, n_frames=LC_FRAMES, depth=4.0, seed=7,
+                       poses=loop_trajectory(LC_FRAMES, LC_SPAN))
+    frames = [scene.render(t) for t in range(LC_FRAMES)]
+    gt = se3.inv(torch.as_tensor(scene.poses)).numpy()
+    weights = os.path.join(ROOT, "weights", "vonet_synth.npz")
+
+    def run(lc, keep_largest=False):
+        cfg = load_config(os.path.join(ROOT, "config", "slam.yaml"),
+                          overrides={"LOOP_CLOSURE": lc})
+        gc.collect()  # an earlier run's tracker (its hooks hold it in a cycle)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        slam = DPVO(cfg, weights, 480, 640)
+        rounds, batches, largest = [], [], {}
+        real_loop, real_round, real_gba = dpvo_mod.edges_loop, slam._run_global_ba, \
+            slam.steps._global_ba
+
+        def loop(s):
+            kk, jj = real_loop(s)
+            if len(kk):
+                batches.append((s.n, len(kk)))
+            return kk, jj
+
+        def solve(state, ges, pos, ninac, t0, nfree, idx):
+            if keep_largest and len(idx["p1"]) >= largest.get("KP", -1):
+                # the solve's arguments (the state's buffers copied), to time it alone
+                args, kw = slam.steps._gba_inputs(state, ges, pos, ninac, t0, nfree, idx)
+                args = (args[0].clone(), args[1], args[2].clone()) + args[3:]
+                largest.update(KP=len(idx["p1"]), inputs=(args, kw))
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before = kernels.LAUNCHES["segsum"]
+            a.record()
+            real_gba(state, ges, pos, ninac, t0, nfree, idx)
+            b.record()
+            b.synchronize()
+            rounds[-1].update(Eg=ges["count"], ninac=ninac, nfree=nfree, depths=ges["n_depths"],
+                              F=len(idx["fk"]), KP=len(idx["p1"]),
+                              frozen=int((~idx["fkeep"]).sum()), ms=a.elapsed_time(b),
+                              segsum=kernels.LAUNCHES["segsum"] - before)
+
+        def timed_round():
+            t0 = time.perf_counter()
+            rounds.append(dict(n=slam.n))
+            real_round()
+            torch.cuda.synchronize()
+            rounds[-1]["host_ms"] = (time.perf_counter() - t0) * 1e3
+
+        dpvo_mod.edges_loop, slam._run_global_ba, slam.steps._global_ba = loop, timed_round, solve
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            for t, image in enumerate(frames):
+                slam(t, image, scene.intrinsics.copy())
+            in_run = sorted(slam.ran_global_ba)
+            poses, _ = slam.terminate()
+            torch.cuda.synchronize()
+        finally:
+            dpvo_mod.edges_loop = real_loop
+        # the tracker goes with this function: the next run's peak is its own
+        return dict(n=slam.n, poses=poses, rounds=rounds, batches=batches, in_run=in_run,
+                    launches=dict(kernels.LAUNCHES), sec=time.perf_counter() - t0,
+                    peak=(torch.cuda.max_memory_allocated() - base) / 2**30, largest=largest,
+                    ate=ate_rmse(poses[:, :3], gt[:, :3]),
+                    dvec=slam.state.dvec[:slam.m].cpu())
+
+    on = run(True, keep_largest=True)
+    for r in on["rounds"]:
+        print("global BA at keyframe {n}: Eg {Eg} ({ninac} inactive), nfree {nfree}, depth "
+              "variables {depths}, F {F}, KP {KP}, frozen entries {frozen}; {ms:.3f} ms (event "
+              "pair around the solve), {host_ms:.1f} ms with the host's sparsity build; segsum "
+              "launches {segsum}".format(**r))
+    print(f"loop closure: {LC_FRAMES} frames in {on['sec']:.1f} s, keyframes {on['n']}, "
+          f"loop-edge batches (keyframe, edges) {on['batches']}, global BA in-run at "
+          f"{on['in_run']}, rounds {len(on['rounds'])}, peak device memory {on['peak']:.3f} "
+          f"GiB (above what earlier phases left allocated), launches { {k: v for k, v in on['launches'].items() if v} }")
+    again = run(True)
+    off = run(False)
+    same = (np.array_equal(on["poses"], again["poses"]) and torch.equal(on["dvec"], again["dvec"])
+            and on["in_run"] == again["in_run"] and on["batches"] == again["batches"])
+    path = np.linalg.norm(np.diff(gt[:, :3], axis=0), axis=1).sum()
+    print(f"loop closure: a second run bit for bit equal (poses, inverse depths, rounds, "
+          f"batches): {same} (largest pose difference "
+          f"{np.abs(again['poses'] - on['poses']).max():.3g})")
+    print(f"loop closure: ATE {on['ate']:.5f} with LOOP_CLOSURE, {off['ate']:.5f} without "
+          f"({off['n']} keyframes, peak device memory {off['peak']:.3f} GiB, "
+          f"{off['sec']:.1f} s); path length {path:.3f}")
+    gba_segsum = sum(r["segsum"] for r in on["rounds"])
+    if not on["batches"] or not on["rounds"] or gba_segsum == 0 or not same \
+            or not np.isfinite(on["poses"]).all() or on["poses"].shape != (LC_FRAMES, 7):
+        raise AssertionError("loop closure: no loop edges, no global BA, no segsum in its "
+                             "rounds, non-finite poses or two runs that differ")
+    big = on["largest"]
+    solve = lambda: gba_sparse.gba(*big["inputs"][0], **big["inputs"][1])
+    stats = dict(ms=cuda_ms(solve, 5), device_ms=device_ms(solve, 5, mixed=True), KP=big["KP"])
+    print("loop closure: the largest round's solve (KP {KP}) timed alone: {ms:.3f} ms (event "
+          "pair), device time {device_ms:.3f} ms".format(**stats))
+    return gba_segsum, stats
+
+
 def main():
     try:
         import torch
@@ -901,7 +1294,17 @@ def main():
     print(f"phase 4: every CORR_IMPL tracks ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     phase_small_parity(torch)
+    phase_lc_small_parity()
+    gba = gba_card_vs_cpu(torch)
+    print("global BA (tests/test_ba.py's problem), card against CPU: poses, depths {own_solve} "
+          "with each side's dense solve, {cpu_solve} with both solves on the CPU; two card "
+          "runs bit for bit equal: {repeat_equal}; segsum launches {segsum_launches}".format(**gba))
+    if not gba["repeat_equal"] or gba["segsum_launches"] == 0:
+        raise AssertionError("global BA: two card runs differ or no segment sum ran")
     print(f"phase 5: small-path parity ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    gba_segsum, _ = phase_loop_closure(torch, kernels)
+    print(f"phase 6: loop closure ok ({time.perf_counter() - t0:.1f} s)")
 
     cp_src, cp_tpu = "dpvo_tpu_torch/csrc/corr_pallas.cu", "dpvo_tpu/ops/corr_pallas.py"
     meta = {  # source, the TPU kernel's pallas_call, the run whose launches count
@@ -909,6 +1312,9 @@ def main():
         "segsum": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68", launches),
         "segsum_bf16": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68",
                         launches),
+        # the global BA's reductions (jax.ops.segment_sum in the JAX package)
+        "segsum_gba": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68",
+                       {"segsum_gba": gba_segsum}),
         "spd_solve": ("dpvo_tpu_torch/csrc/spd_solve.cu", "dpvo_tpu/ba/spd_solve.py:81",
                       launches),
         "corr_window": (cp_src, f"{cp_tpu}:188", impl_launches["pallas"]),

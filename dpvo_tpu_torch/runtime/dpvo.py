@@ -16,7 +16,25 @@ count and the pose pair of its dispatch, and ``__call__`` decides from
 the queue's head. ``KEYFRAME_SYNC`` decides right after the frame, as
 the reference DPVO does; ``terminate``, the non-steady branch of
 ``__call__`` and ``update()`` drain the queue first, as the JAX
-tracker's ``_flush_pending`` does. Loop closure is not ported yet.
+tracker's ``_flush_pending`` does.
+
+Proximity loop closure (``LOOP_CLOSURE``, DPV-SLAM's backend): a frame
+takes the non-steady branch when a global BA is due (``GLOBAL_OPT_FREQ``
+frames since the last proximity batch, or an active edge older than the
+removal window); there ``slam/proximity.edges_loop`` proposes loop edges
+every ``GLOBAL_OPT_FREQ`` frames, and each round of ``update()`` with such
+edges active runs the update operator and then a global BA over the
+inactive and active edges (``_run_global_ba``: the scale-gauge guard,
+then ``ba/gba_sparse.gba``) in place of the sliding-window BA, once per
+frame count; ``terminate`` proposes a last batch and runs 12 such rounds.
+Loop edges stay out of the removal window while their target frame is in
+the optimization window. ``CLASSIC_LOOP_CLOSURE`` is not ported.
+
+The oracle hook: ``slam.oracle = fn(slam, es) -> (target, weight)``,
+numpy [E, 2] for the host ``EdgeSet`` es, replaces the network's
+prediction in every round (the sliding-window BA then runs on them, and
+the global BA when due); a set oracle sends every frame through the
+non-steady branch, as in the JAX tracker.
 """
 
 from __future__ import annotations
@@ -27,14 +45,16 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dpvo_tpu_torch.ba.gba_sparse import build_sparse_indices
 from dpvo_tpu_torch.ba.spd_solve import MAX_N as SPD_MAX_N
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.lie import se3
 from dpvo_tpu_torch.models.patchifier import random_centroids
 from dpvo_tpu_torch.runtime.state import make_state
 from dpvo_tpu_torch.runtime.steps import StepFunctions, edge_tensors
-from dpvo_tpu_torch.runtime.topology import Topology
+from dpvo_tpu_torch.runtime.topology import Topology, dense_rank
 from dpvo_tpu_torch.runtime.weights import load_networks
+from dpvo_tpu_torch.slam.proximity import edges_loop
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,8 +87,9 @@ class DPVO:
 
     def __init__(self, cfg: Config, network=None, ht: int = 480, wd: int = 640, device=None,
                  seed: int = 0, draws: Optional[Draws] = None):
-        if cfg.LOOP_CLOSURE or cfg.CLASSIC_LOOP_CLOSURE:
-            raise NotImplementedError("loop closure is not ported yet")
+        if cfg.CLASSIC_LOOP_CLOSURE:
+            raise NotImplementedError("CLASSIC_LOOP_CLOSURE is not ported yet (it needs Sim(3), "
+                                      "PGO and retrieval)")
         if cfg.CENTROID_SEL_STRAT != "RANDOM":
             raise NotImplementedError(f"CENTROID_SEL_STRAT={cfg.CENTROID_SEL_STRAT} is not "
                                       "ported yet (RANDOM only)")
@@ -98,6 +119,11 @@ class DPVO:
         # steady frames whose keyframe decision is pending: (flow magnitude,
         # n at dispatch, poses[n - KEYFRAME_INDEX - 1 : n - KEYFRAME_INDEX + 1])
         self._inflights = deque()
+        self.ran_global_ba = set()   # frame counts n at which a global BA ran
+        self.last_global_ba = -1000  # n of the last proximity-edge batch
+        self._norm_clamp_hits = 0
+        # fn(slam, EdgeSet) -> (target, weight) numpy [E, 2], or None
+        self.oracle = None
 
     @property
     def n(self) -> int:
@@ -131,7 +157,11 @@ class DPVO:
         # retire frames beyond the pipeline depth: apply their decisions
         while len(self._inflights) >= max(cfg.PIPELINE_DEPTH, 1):
             self._drain_one()
-        if not self.is_initialized:  # the JAX tracker's non-fused branch
+        run_gba = cfg.LOOP_CLOSURE and (
+            self.n + 1 - self.last_global_ba >= cfg.GLOBAL_OPT_FREQ
+            or (self.topo.ii < self.n + 1 - cfg.REMOVAL_WINDOW - 1).any())
+        steady = self.is_initialized and self.oracle is None and not run_gba
+        if not steady:  # the JAX tracker's non-fused branch
             self._drain()
 
         self.tlist.append(float(tstamp))
@@ -158,17 +188,43 @@ class DPVO:
                 return
 
         self.topo.add_frame()
+        if cfg.LOOP_CLOSURE and self.n - self.last_global_ba >= cfg.GLOBAL_OPT_FREQ:
+            lkk, ljj = edges_loop(self)
+            if len(lkk) > 0:
+                self.last_global_ba = self.n
+                self._append(lkk, ljj)
+
         kk_f, jj_f = self.topo.edges_forw()
         kk_b, jj_b = self.topo.edges_back()
-        self._append(np.concatenate([kk_f, kk_b]), np.concatenate([jj_f, jj_b]))
+        kk_new, jj_new = np.concatenate([kk_f, kk_b]), np.concatenate([jj_f, jj_b])
+        if steady:
+            self._cap_depths(kk_new)
+        self._append(kk_new, jj_new)
 
         if self.n == 8 and not self.is_initialized:
             self.is_initialized = True
             for _ in range(12):
                 self.update()
-        elif self.is_initialized:
+        elif steady:
             self._update()  # the steady frame: no drain, as the JAX fused step
             self.keyframe()
+        elif self.is_initialized:
+            self.update()
+            self.keyframe()
+            self._drain()  # decided inline, as the JAX tracker's non-fused frame
+
+    def _cap_depths(self, kk_new):
+        """The steady frame's depth-variable guard (the JAX fused frame's):
+        loop edges are exempt from the removal window and can hold old
+        patches, so before the new frame's edges kk_new are appended, the
+        edges on the oldest patches beyond M_OPT_MAX distinct ones are
+        retired into the inactive store (the global BA still sees them)."""
+        uniq = dense_rank(np.concatenate([self.topo.kk, kk_new]))[0]
+        over = len(uniq) - self.cfg.M_OPT_MAX
+        if over > 0:
+            print(f"warning: M_OPT_MAX={self.cfg.M_OPT_MAX} reached; retiring edges on {over} "
+                  "oldest patches")
+            self._remove(np.isin(self.topo.kk, uniq[:over]), store=True)
 
     def _append(self, kk, jj):
         cfg = self.cfg
@@ -209,7 +265,49 @@ class DPVO:
         nfree = max(self.n - t0, 0)
         if nfree > cfg.W_OPT_MAX:
             raise RuntimeError(f"free poses {nfree} exceed W_OPT_MAX {cfg.W_OPT_MAX}")
-        self.steps._update(self.state, self._edges(), t0, nfree)
+        run_gba = (cfg.LOOP_CLOSURE
+                   and (self.topo.ii < self.n - cfg.REMOVAL_WINDOW - 1).any()
+                   and self.n not in self.ran_global_ba)
+        es = self.topo.edge_set(pad=len(self.topo.ii))
+        edges = edge_tensors(es, self.device)
+        if self.oracle is not None:
+            target, weight = self.oracle(self, es)
+            t = lambda x: torch.as_tensor(np.asarray(x, np.float32)[: es.count],
+                                          device=self.device)
+            self.steps._ba_only(self.state, edges, t(target), t(weight), t0, nfree)
+            if run_gba:  # the global BA reads the oracle's stored targets
+                self._run_global_ba()
+        elif run_gba:
+            self.steps._update_noba(self.state, edges)
+            self._run_global_ba()
+        else:
+            self.steps._update(self.state, edges, t0, nfree)
+
+    def _run_global_ba(self):
+        """Full-history BA over the inactive and active edges (ref
+        dpvo.py:695-716), after the scale-gauge guard. Frees every pose from
+        the oldest edge's frame, at most GBA_POSES_MAX of them (older poses
+        anchor the gauge)."""
+        cfg = self.cfg
+        ges, pos, ninac = self.topo.global_edge_set()
+        s_norm = float(self.steps._normalize(self.state, self.n, self.m))
+        # sustained saturation of the [0.25, 4] clamp: a heavy-tailed depth
+        # distribution, whose scale may drift
+        if s_norm <= 0.2501 or s_norm >= 3.999:
+            self._norm_clamp_hits += 1
+            if self._norm_clamp_hits in (1, 10, 100):
+                print(f"warning: normalize gauge rescale clamped (s={s_norm:.3g}, "
+                      f"hit #{self._norm_clamp_hits}) — depth distribution has a "
+                      "heavy tail; trajectory scale may drift")
+        E = ges["count"]
+        t0 = int(min(ges["ii"].min(), self.n - 1)) if E else 0
+        t0 = max(t0, max(self.n - cfg.GBA_POSES_MAX, 0))
+        nfree = self.n - t0
+        idx = build_sparse_indices(ges["ii"], ges["jj"], ges["kd"], t0, nfree,
+                                   W=max(nfree, 1), R_MAX=2 * cfg.GBA_EDGES_MAX,
+                                   KP_MAX=cfg.GBA_KPAIRS_MAX)
+        self.steps._global_ba(self.state, ges, pos, ninac, t0, nfree, idx)
+        self.ran_global_ba.add(self.n)
 
     # ---------------- keyframing ----------------
 
@@ -267,8 +365,13 @@ class DPVO:
             del self.tstamps[k]
             self.steps._keyframe_shift(self.state, k, self.n)
 
-        # retire edges whose patches fell out of the optimization window
+        # retire edges whose patches fell out of the optimization window,
+        # loop edges into the optimization window excepted
         to_remove = (self.topo.kk // M) < self.n - cfg.REMOVAL_WINDOW
+        if cfg.LOOP_CLOSURE:
+            lc = ((self.topo.jj - self.topo.ii) > 30) & (
+                self.topo.jj > self.n - cfg.OPTIMIZATION_WINDOW)
+            to_remove &= ~lc
         if to_remove.any():
             self._remove(to_remove, store=True)
 
@@ -294,11 +397,18 @@ class DPVO:
 
     @torch.no_grad()
     def terminate(self) -> Tuple[np.ndarray, np.ndarray]:
-        """12 final update rounds (the first applies the pending keyframe
-        decisions); returns camera-to-world poses [T,7] for every frame
-        (culled ones through their relative-pose chain) and the
-        timestamps."""
+        """Apply the pending keyframe decisions, propose a last batch of loop
+        edges (LOOP_CLOSURE), then 12 final update rounds, each with a global
+        BA while loop edges are active; returns camera-to-world poses [T,7]
+        for every frame (culled ones through their relative-pose chain) and
+        the timestamps."""
+        self._drain()
+        if self.cfg.LOOP_CLOSURE:
+            lkk, ljj = edges_loop(self)
+            if len(lkk) > 0:
+                self._append(lkk, ljj)
         for _ in range(12):
+            self.ran_global_ba.discard(self.n)
             self.update()
         poses_kf = self.state.poses[: self.n].cpu().numpy()
         traj = {self.tstamps[i]: poses_kf[i] for i in range(self.n)}

@@ -14,6 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from dpvo_tpu_torch.ba import gba_sparse
 from dpvo_tpu_torch.ba import solver as ba_solver
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.geom import projective as pops
@@ -144,7 +145,7 @@ class StepFunctions:
         ctx = state.imap[es["ii1"]]
         net, delta, weight = self.nets.update(
             net, ctx, corr, es["ix"], es["jx"], es["mask_ix"], es["mask_jx"], es["kk_seg"],
-            es["ij_seg"], es["valid"], num_segments=cfg.M_OPT_MAX,
+            es["ij_seg"], es["valid"], num_segments=es["dense2patch"].shape[0],
             num_ij_segments=2 * PAIR_MAX, kk_order=es["kd_order"], ij_order=es["ij_order"])
         c = cfg.P // 2
         target = coords[:, c, c, :].to(torch.float32) + delta
@@ -172,23 +173,44 @@ class StepFunctions:
 
     def _update(self, state: VOState, es: Dict[str, torch.Tensor], t0: int, nfree: int):
         """One tracking round: update operator + sliding-window BA."""
-        cfg = self.cfg
+        target, weight = self._update_noba(state, es)
+        self._window_ba(state, es, target, weight, t0, nfree)
+
+    def _ba_only(self, state: VOState, es: Dict[str, torch.Tensor], target, weight, t0: int,
+                 nfree: int):
+        """Sliding-window BA on given targets and weights [E, 2] (the oracle
+        hook: the network's prediction bypassed); they are stored as the
+        edges' own, which the global BA reads."""
+        E = es["ii"].shape[0]
+        state.target[:E] = target
+        state.weight[:E] = weight
+        self._window_ba(state, es, target, weight, t0, nfree)
+
+    def _update_noba(self, state: VOState, es: Dict[str, torch.Tensor]):
+        """The update operator alone (before a global-BA round, which takes
+        the sliding-window solve's place); stores and returns the edges'
+        target and weight."""
         E = es["ii"].shape[0]
         net, target, weight, _ = self._edge_forward(state, es)
         state.net[:E] = net
         state.target[:E] = target
         state.weight[:E] = weight
+        return target, weight
 
+    def _window_ba(self, state: VOState, es: Dict[str, torch.Tensor], target, weight, t0: int,
+                   nfree: int):
+        cfg = self.cfg
         c = cfg.P // 2
         nd = es["n_depths"]
+        Md = es["dense2patch"].shape[0]
         d2p = es["dense2patch"][:nd]
-        ctr = torch.zeros((cfg.M_OPT_MAX, 3), dtype=torch.float32, device=self.device)
+        ctr = torch.zeros((Md, 3), dtype=torch.float32, device=self.device)
         ctr[:nd, :2] = state.patches[d2p, :2, c, c]
         ctr[:nd, 2] = state.dvec[d2p]
         poses, depths = ba_solver.ba(
             state.poses, ctr, state.intrinsics, target, weight, es["valid"], es["ii"], es["jj"],
             es["kd"], t0, nfree, self._ba_bounds(state), cfg.BA_LMBDA, W=cfg.W_OPT_MAX,
-            Md=cfg.M_OPT_MAX, iterations=cfg.BA_ITERS, ep=cfg.BA_EP, lm=cfg.BA_LM,
+            Md=Md, iterations=cfg.BA_ITERS, ep=cfg.BA_EP, lm=cfg.BA_LM,
             res_clip=cfg.BA_RESIDUAL_CLIP, clamp_mode="runtime", kd_order=es["kd_order"])
         state.poses.copy_(poses)
         state.dvec[d2p] = depths[:nd]
@@ -239,3 +261,56 @@ class StepFunctions:
             src = (((f + 1) % period)[:, None] * rows + np.arange(rows)[None, :]).reshape(-1)
             buf[torch.as_tensor(dst, device=self.device)] = \
                 buf[torch.as_tensor(src, device=self.device)]
+
+    # ---------------- global BA + gauge ----------------
+
+    def _normalize(self, state: VOState, n: int, m: int):
+        """Scale-gauge guard before a global-BA round, as the JAX step: only
+        when the mean inverse depth of the m live patches has left [1e-2,
+        1e2], divide the depths and scale the translations of the n live
+        poses by s (the mean clamped to [0.25, 4]) and re-anchor them to
+        pose 0; otherwise s = 1 and nothing moves. Returns s (a device
+        scalar)."""
+        d = state.dvec[:m]
+        s_raw = d.sum() / max(m, 1)
+        drifted = (s_raw < 1e-2) | (s_raw > 1e2)
+        s = torch.where(drifted, torch.clamp(s_raw, 0.25, 4.0), torch.ones_like(s_raw))
+        state.dvec[:m] = d / s
+        poses = state.poses[:n].clone()
+        poses[:, :3] = poses[:, :3] * s
+        anchored = se3.mul(poses, se3.inv(poses[0])[None])
+        state.poses[:n] = torch.where(drifted, anchored, poses)
+        return s
+
+    def _global_ba(self, state: VOState, ges, pos, ninac: int, t0: int, nfree: int, idx):
+        """Full-history BA over the inactive and active edges, sparse-assembled
+        (``ba/gba_sparse.py``). ges: ``Topology.global_edge_set``'s edges;
+        pos [ninac] the ring slots of the first ninac; idx: their sparsity
+        (``build_sparse_indices`` with W = max(nfree, 1))."""
+        args, kw = self._gba_inputs(state, ges, pos, ninac, t0, nfree, idx)
+        poses, depths = gba_sparse.gba(*args, **kw)
+        state.poses.copy_(poses)
+        state.dvec[torch.as_tensor(ges["dense2patch"], device=self.device)] = depths
+
+    def _gba_inputs(self, state: VOState, ges, pos, ninac: int, t0: int, nfree: int, idx):
+        """The arguments of ``gba_sparse.gba`` for a global-BA round: the
+        edges' stored target and weight (the inactive ring's slots pos, then
+        the active edges'), the depth variables' patch centres and inverse
+        depths, the sparsity on the device."""
+        cfg = self.cfg
+        dev = self.device
+        E = ges["count"]
+        pos = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
+        target = torch.cat([state.target_inac[pos], state.target[:E - ninac]])
+        weight = torch.cat([state.weight_inac[pos], state.weight[:E - ninac]])
+        c = cfg.P // 2
+        d2p = torch.as_tensor(ges["dense2patch"], dtype=torch.int64, device=dev)
+        ctr = torch.cat([state.patches[d2p, :2, c, c], state.dvec[d2p][:, None]], 1)
+        t = lambda k, dt: torch.as_tensor(np.asarray(ges[k]), dtype=dt, device=dev)
+        args = (state.poses, ctr, state.intrinsics, target, weight,
+                torch.ones(E, dtype=torch.bool, device=dev), t("ii", torch.int64),
+                t("jj", torch.int64), t("kd", torch.int32), t0, nfree, self._ba_bounds(state),
+                cfg.BA_LMBDA, gba_sparse.index_tensors(idx, dev))
+        kw = dict(W=max(nfree, 1), Md=ges["n_depths"], iterations=cfg.GBA_ITERS, ep=cfg.BA_EP,
+                  lm=cfg.BA_LM, res_clip=cfg.BA_RESIDUAL_CLIP)
+        return args, kw

@@ -1,9 +1,10 @@
 """Host-side patch-graph topology manager — NumPy integer bookkeeping.
 
-A copy of ``dpvo_tpu/runtime/topology.py`` (without the global-BA edge
-set, which waits for the loop-closure port). Its edge sets also carry
+A copy of ``dpvo_tpu/runtime/topology.py``. Its edge sets also carry
 ``ij_order``, the stable sort by pair that the update operator's pair
-aggregation reads.
+aggregation reads, and size the depth variables by the live count where
+it exceeds ``M_OPT_MAX`` (see ``edge_set``); the global-BA edge set has
+the live length, where the JAX one pads to ``GBA_EDGES_MAX``.
 
 The reference mutates edge index tensors on the GPU
 (dpvo/dpvo.py:480-568 append/remove_factors, :601-693 keyframe). Under
@@ -252,8 +253,11 @@ class Topology:
         ix, jx, hp, hn = neighbors(kk, jj)
 
         n_depths = len(uniq)
-        Mp = cfg.M_OPT_MAX
-        assert n_depths <= Mp, f"depth variables {n_depths} exceed M_OPT_MAX {Mp}"
+        # M_OPT_MAX depth variables, or the live count beyond it: loop-closure
+        # edges on old patches can exceed it in a non-steady round, where the
+        # JAX package's assert stops the tracker (the steady frame retires
+        # edges on the oldest patches first, DPVO._cap_depths, as it does)
+        Mp = max(cfg.M_OPT_MAX, n_depths)
         # padded slots point past the patch buffer -> dropped by scatters
         sentinel = cfg.BUFFER_SIZE * cfg.PATCHES_PER_FRAME
         dense2patch = np.full(Mp, sentinel, np.int64)
@@ -288,3 +292,25 @@ class Topology:
             n_depths=n_depths,
             count=E,
         )
+
+    def global_edge_set(self):
+        """Inactive + active edges for global BA (ref dpvo.py:695-716): the
+        inactive ring from its oldest slot, then the active edges.
+
+        Returns (edges, pos, ninac): ``edges`` a dict of live-length arrays
+        ii, jj, kk, kd (dense depth variable of kk) and dense2patch (patch of
+        each depth variable), with n_depths and count; pos [ninac] the ring
+        slot whose stored target/weight pairs with global edge i < ninac."""
+        cfg = self.cfg
+        ninac = self.inac_count
+        pos = (self.inac_head - ninac + np.arange(ninac)) % cfg.E_INAC_MAX
+        ii = np.concatenate([self.ii_inac[pos], self.ii])
+        jj = np.concatenate([self.jj_inac[pos], self.jj])
+        kk = np.concatenate([self.kk_inac[pos], self.kk])
+
+        E = len(ii)
+        assert E <= cfg.GBA_EDGES_MAX, f"global BA edges {E} exceed GBA_EDGES_MAX"
+        uniq, kk_seg = dense_rank(kk)
+        assert len(uniq) <= cfg.GBA_DEPTHS_MAX, "GBA depth variables overflow"
+        es = dict(ii=ii, jj=jj, kk=kk, kd=kk_seg, dense2patch=uniq, n_depths=len(uniq), count=E)
+        return es, pos, ninac

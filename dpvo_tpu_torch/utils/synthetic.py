@@ -1,7 +1,7 @@
 """Synthetic scene generator (NumPy) for tests and the chip smoke run.
 
-A copy of ``dpvo_tpu/utils/synthetic.py`` without its JAX oracle helper
-(``gt_targets``; the oracle hook is not ported yet). Renders a textured
+A copy of ``dpvo_tpu/utils/synthetic.py``, its oracle targets
+(``PlaneScene.gt_targets``) on the port's projective ops. Renders a textured
 fronto-parallel plane observed by a moving camera: fully known geometry
 (ground-truth poses and dense inverse depth) and realistic optical flow.
 """
@@ -9,6 +9,9 @@ fronto-parallel plane observed by a moving camera: fully known geometry
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from dpvo_tpu_torch.geom import projective as pops
 
 # NumPy quaternion/SE3 helpers. Conventions match dpvo_tpu_torch.lie.se3:
 # pose = (tx,ty,tz, qx,qy,qz,qw), world-to-camera.
@@ -142,6 +145,23 @@ class PlaneScene:
         ti = np.mod((px * self.tex_scale).astype(np.int64), self.tex.shape[0])
         tj = np.mod((py * self.tex_scale).astype(np.int64), self.tex.shape[1])
         return self.tex[tj, ti]
+
+    def gt_targets(self, poses_gt, patch_xy_q, ii, jj, kk):
+        """Oracle reprojection targets at 1/4 resolution.
+
+        patch_xy_q [Mtot, 2]: patch centres (x, y) at 1/4 res; returns the
+        ground-truth projection [E, 2] of patch kk (anchored in frame ii,
+        at its true inverse depth) into frame jj."""
+        x4 = patch_xy_q[kk, 0]
+        y4 = patch_xy_q[kk, 1]
+        d = self.inv_depth_list(ii, x4 * 4.0, y4 * 4.0)
+        ctr = np.stack([x4, y4, d], -1).astype(np.float32)  # [E, 3]
+        intr_q = np.tile(self.intrinsics[None] / 4.0, (len(self.poses), 1))
+        t = torch.as_tensor
+        coords = pops.transform(t(np.asarray(poses_gt, np.float32)), t(ctr[:, :, None, None]),
+                                t(intr_q), t(np.asarray(ii, np.int64)),
+                                t(np.asarray(jj, np.int64)), torch.arange(len(ii)))
+        return coords[:, 0, 0, :].numpy()
 
     def inv_depth_list(self, frames: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
         out = np.zeros_like(x, np.float64)

@@ -367,3 +367,47 @@ def test_soft_agg_is_reproducible(dev):
             agg.to(dev)
         assert torch.equal(a, b)
         torch.testing.assert_close(a.cpu(), ref, rtol=1e-4, atol=1e-5)
+
+
+def test_segsum_kernel_at_global_ba_shapes(dev):
+    """The seven reductions of a global-BA iteration (chip_smoke.gba_reductions:
+    build_sparse_indices' ids and orders for 20 free keyframes of 32 patches,
+    K = 2, 6 and 36 f32, pose blocks into W^2 segments, kpairs in sorted
+    order), bit for bit against the plain version."""
+    import chip_smoke
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+
+    calls, sizes = chip_smoke.gba_reductions(torch, torch.Generator().manual_seed(6), dev,
+                                             n=20, M=32, reach=6)
+    assert sizes["KP"] > 50_000
+    before = kernels.LAUNCHES["segsum"]
+    for name, (p, kd, order, Md) in calls.items():
+        got = segment_sum(p, kd, order, Md).cpu()
+        assert torch.equal(got, segment_sum_plain(p.cpu(), kd.cpu(), Md)), name
+    assert kernels.LAUNCHES["segsum"] == before + len(calls)
+
+
+# |card - CPU| of the sparse global BA on chip_smoke.gba_problem (two
+# iterations), as chip_smoke.py phase 5 prints it on an H100 (PR 7): with
+# the dense solve on the CPU for both (LAPACK's Cholesky) 2.1e-6 (poses)
+# and 4.4e-6 (depths), the assembly's f32 rounding; with each side's own
+# solve 2.03e-4 and 3.50e-4: cuSOLVER's f32 Cholesky against LAPACK's on
+# an ill-conditioned system (S = B - E Q E^T cancels most of B). Doubled.
+GBA_CARD_ATOL = dict(cpu_solve=(5e-6, 1e-5), own_solve=(4.1e-4, 7.1e-4))
+
+
+def test_gba_on_the_card_matches_the_cpu(dev):
+    """The sparse global BA on the card against the CPU on a synthetic
+    problem, within GBA_CARD_ATOL (chip_smoke.gba_card_vs_cpu: with the
+    dense solve on the CPU for both, and each with its own); two card runs
+    give the same bits; each of a run's two iterations launches seven
+    segment sums."""
+    import chip_smoke
+
+    out = chip_smoke.gba_card_vs_cpu(torch, dev)
+    assert out["segsum_launches"] == 2 * 7
+    assert out["repeat_equal"] and out["step"] > 1e-3  # the solve moved the poses
+    for k, tols in GBA_CARD_ATOL.items():
+        for d, tol in zip(out[k], tols):
+            assert d <= tol, (k, out[k])

@@ -33,17 +33,21 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "dpvo_tpu"))
-print(len(names), bad)
+print(len(names), bad, all(m in names for m in REQUIRED))
 """
+# modules the import check must reach (the loop-closure slice's among them)
+REQUIRED = ("dpvo_tpu_torch.slam.proximity", "dpvo_tpu_torch.ba.gba_sparse",
+            "dpvo_tpu_torch.runtime.dpvo")
 
 
 def test_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
+    code = f"REQUIRED = {REQUIRED!r}\n" + _IMPORT_ALL
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 25 and bad == "[]", out.stdout
+    count, bad, required = out.stdout.strip().split(" ", 2)
+    assert int(count) >= 28 and bad == "[]" and required == "True", out.stdout
 
 
 def test_dpvo_without_device_needs_a_card(monkeypatch):
@@ -58,6 +62,22 @@ def test_dpvo_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DPVO(cfg, None, 32, 32, device="cuda")
     assert DPVO(cfg, None, 32, 32, device="cpu").device.type == "cpu"
+
+
+def test_loop_closure_is_ported_classic_is_not():
+    """LOOP_CLOSURE (proximity loop closure, config/slam.yaml) builds a
+    tracker; CLASSIC_LOOP_CLOSURE, which needs Sim(3), PGO and retrieval,
+    is refused."""
+    from dpvo_tpu_torch import DPVO, load_config
+    from dpvo_tpu_torch.config import Config
+
+    assert load_config(os.path.join(ROOT, "config", "slam.yaml")).LOOP_CLOSURE
+    kw = dict(BUFFER_SIZE=16, PATCHES_PER_FRAME=4, DIM=32, FDIM=16, E_MAX=64, E_INAC_MAX=64,
+              M_OPT_MAX=32, W_OPT_MAX=8, MAX_EDGE_AGE=8, MIXED_PRECISION=False)
+    slam = DPVO(Config(LOOP_CLOSURE=True, **kw), None, 32, 32, device="cpu")
+    assert slam.ran_global_ba == set() and slam.oracle is None
+    with pytest.raises(NotImplementedError, match="CLASSIC_LOOP_CLOSURE"):
+        DPVO(Config(CLASSIC_LOOP_CLOSURE=True, **kw), None, 32, 32, device="cpu")
 
 
 def test_card_tracker_rejects_a_window_beyond_the_pose_solve(monkeypatch):
