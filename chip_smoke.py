@@ -18,7 +18,11 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    (row segsum_gba) the seven f32 reductions of a global-BA iteration at
    phase 6's size (pose blocks [4E, 36] into nfree^2 segments, kpairs
    [KP, 36], Fe [R, 6], ...), bit for bit against the plain version on the
-   CPU; SPD solve: n = 96, forward and backward). Print the error and the median time of the kernel, the plain
+   CPU; SPD solve: n = 96, forward and backward; and classic loop closure's
+   call sites: segsum_pgo (the PGO's H [4R, 49] and g [2R, 7] at 60 poses),
+   segsum_triplet (the triplet BA's [1024, 26] into 512 depths), bit for bit,
+   and spd_triplet (n = 24: the identity system bit for bit, a random one
+   within 1e-4)). Print the error and the median time of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (``library_ms``): each an event pair around one call, host launch
    included (``ms``), and for the kernels also the device time of their
@@ -62,6 +66,17 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    Each round's edges, free poses, entries, kpairs and times, the peak
    device memory and the ATE beside a run with LOOP_CLOSURE false are
    printed, not gated; the largest round's solve is timed alone.
+7. Classic loop closure at full width on phase 6's stream: DPVO with
+   config/default.yaml plus CLASSIC_LOOP_CLOSURE (LOOP_RETR_THRESH 0.8) and
+   weights/vonet_synth.npz,
+   its keypoints from SceneKeypoints (seeded points on the scene's plane with
+   seeded descriptors: no OpenCV on the card's machine), then terminate():
+   two inline runs (a candidate, a correction applied, segsum launched in the
+   triplet BAs and the PGO and the SPD kernel in the triplet BAs, finite
+   poses, the two bit for bit equal) and one with the worker thread and the
+   PGO executor (a correction applied). The retrieval frames, candidates,
+   corrections, each triplet BA's and PGO's time and size, peak memory and
+   the ATE beside phase 6's run without loop closure are printed, not gated.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs a CUDA device and
@@ -159,17 +174,9 @@ def bound(nbytes, flops, peak_flops):
 
 def ate_rmse(est, gt):
     """ATE-RMSE after a Umeyama Sim(3) alignment of positions [N,3]."""
-    x, y = est.T, gt.T
-    mx, my = x.mean(1), y.mean(1)
-    sx = ((x - mx[:, None]) ** 2).sum() / x.shape[1]
-    u, d, vt = np.linalg.svd((y - my[:, None]) @ (x - mx[:, None]).T / x.shape[1])
-    s = np.eye(3)
-    if np.linalg.det(u) * np.linalg.det(vt) < 0:
-        s[-1, -1] = -1
-    R = u @ s @ vt
-    c = np.trace(np.diag(d) @ s) / sx if sx > 1e-12 else 1.0
-    err = (c * (R @ x)).T + (my - c * R @ mx) - gt
-    return float(np.sqrt((np.linalg.norm(err, axis=1) ** 2).mean()))
+    from dpvo_tpu_torch.eval.ate import ate_rmse as port_ate_rmse
+
+    return port_ate_rmse(est, gt)
 
 
 def phase_kernels(torch, kernels):
@@ -242,6 +249,7 @@ def phase_kernels(torch, kernels):
 
     out.update(segsum_kernels(torch, g))
     out.update(segsum_gba_kernels(torch, g))
+    out.update(classic_lc_kernels(torch, g))
 
     # ---- SPD solve: the n = 96 damped pose system, forward and backward ----
     n = 96
@@ -426,6 +434,104 @@ def segsum_gba_kernels(torch, g):
         bound=bound(nbytes, flops, PEAK_F32))}
 
 
+# phase 7's keyframe count (phase 6's stream kept 60): the PGO's size there
+PGO_N = 60
+
+
+def pgo_reductions(torch, dev, n=PGO_N, seed=0):
+    """The PGO's two reductions (slam/pgo.normal_eqs) for an odometry chain of
+    n poses and one loop constraint (n - 2 -> 1), every pose free, with
+    random f32 payloads: name -> (payload, ids, order, segments)."""
+    from dpvo_tpu_torch.slam.pgo import pgo_graph
+
+    iii = np.concatenate([np.arange(1, n), [n - 2]])
+    jjj = np.concatenate([np.arange(n - 1), [1]])
+    graph = pgo_graph(iii, jjj, n, n, dev)
+    R = len(iii)
+    g = torch.Generator().manual_seed(seed)
+    x = lambda rows, k: torch.randn((rows, k), generator=g).to(dev)
+    return {"H blocks [4R, 49]": (x(4 * R, 49), graph["h_seg"], graph["h_order"], n * n),
+            "g terms [2R, 7]": (x(2 * R, 7), graph["g_seg"], graph["g_order"], n)}
+
+
+def triplet_reduction(torch, dev, n=512, seed=0):
+    """The triplet BA's depth reduction (ba/solver.assemble_normal_eqs at W =
+    4): a [2 n, 6 W + 2] f32 payload into n depth variables, each seen from
+    the two neighbours (kd = tile(arange(n), 2), its stable order)."""
+    kd = np.tile(np.arange(n, dtype=np.int32), 2)
+    g = torch.Generator().manual_seed(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return (torch.randn((2 * n, 26), generator=g).to(dev), t(kd),
+            t(np.argsort(kd, kind="stable").astype(np.int32)), n)
+
+
+def classic_lc_kernels(torch, g):
+    """The segment sum and the SPD solve at classic loop closure's call
+    sites, each against its plain version: segsum_pgo (the PGO's H and g,
+    PGO_N poses, into n^2 and n segments), segsum_triplet (the triplet BA's
+    [1024, 26] into 512 depth variables), both bit for bit against the plain
+    version on the CPU; spd_triplet (the triplet BA's pose system, n = 24: no
+    pose is free, so S = I and y = 0, x = 0 bit for bit; and a random SPD
+    system of that size within 1e-4 relative)."""
+    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+    from dpvo_tpu_torch.ba.spd_solve import spd_solve, spd_solve_plain
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, calls in (("segsum_pgo", list(pgo_reductions(torch, dev).values())),
+                        ("segsum_triplet", [triplet_reduction(torch, dev)])):
+        got = [segment_sum(*c).cpu() for c in calls]
+        want = [segment_sum_plain(p.cpu(), kd.cpu(), Md) for p, kd, _, Md in calls]
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        print(f"{name}: {[tuple(c[0].shape) for c in calls]} into {[c[3] for c in calls]} "
+              f"segments: bit for bit equal to the plain version: {same}")
+        if not same:
+            raise AssertionError(f"{name}: segsum kernel disagrees with its plain version")
+        run = lambda: [segment_sum(*c) for c in calls]
+        lib_args = [(p, kd.long(), Md) for p, kd, _, Md in calls]
+        lib = lambda: [torch.zeros((Md, p.shape[1]), device=dev).index_add_(0, kd, p)
+                       for p, kd, Md in lib_args]
+        t = dict(ms=cuda_ms(run, 50), library_ms=cuda_ms(lib, 50), device_ms=device_ms(run, 50),
+                 library_device_ms=device_ms(lib, 50))
+        print(f"{name}: ms {{ms:.5f}} (index_add_ {{library_ms:.5f}}); device time "
+              "{device_ms:.5f} ({library_device_ms:.5f})".format(**t))
+        # each row read once with its int32 id and order, each output written once
+        nbytes = sum(p.numel() * 4 + p.shape[0] * 8 + Md * p.shape[1] * 4 for p, _, _, Md in calls)
+        out[name] = dict(max_abs_err=err, ms=t["ms"], library_ms=t["library_ms"],
+                         device_ms=t["device_ms"],
+                         plain_ms=cuda_ms(lambda: [segment_sum_plain(p, kd, Md)
+                                                   for p, kd, _, Md in calls], 10),
+                         bound=bound(nbytes, sum(p.numel() for p, *_ in calls), PEAK_F32))
+
+    n = 24
+    S, y = torch.eye(n, device=dev), torch.zeros(n, device=dev)
+    x = spd_solve(S, y)
+    if not torch.equal(x.cpu(), spd_solve_plain(S.cpu(), y.cpu())):
+        raise AssertionError("spd_triplet: the identity system's solve differs from the plain one")
+    A = torch.randn((n, n), generator=g, device=dev)
+    Sr = (A @ A.T + n * torch.eye(n, device=dev)).contiguous()
+    yr = torch.randn(n, generator=g, device=dev)
+    xr, xp = spd_solve(Sr, yr), spd_solve_plain(Sr, yr)
+    rel = ((xr - xp).abs().max() / xp.abs().max()).item()
+    print(f"spd_triplet: n = {n}: S = I, y = 0 bit for bit equal to the plain version; a random "
+          f"SPD system within {rel:.3g} relative")
+    if rel > 1e-4:
+        raise AssertionError("spd_triplet: SPD kernel disagrees with its plain version")
+    t = dict(ms=cuda_ms(lambda: spd_solve(S, y), 50),
+             library_ms=cuda_ms(lambda: torch.linalg.solve(S, y), 50),
+             device_ms=device_ms(lambda: spd_solve(S, y), 50),
+             library_device_ms=device_ms(lambda: torch.linalg.solve(S, y), 50))
+    print("spd_triplet: ms {ms:.5f} (torch.linalg.solve {library_ms:.5f}); device time "
+          "{device_ms:.5f} ({library_device_ms:.5f})".format(**t))
+    out["spd_triplet"] = dict(max_abs_err=(x.cpu() - spd_solve_plain(S.cpu(), y.cpu())).abs()
+                              .max().item(), ms=t["ms"], library_ms=t["library_ms"],
+                              device_ms=t["device_ms"],
+                              plain_ms=cuda_ms(lambda: spd_solve_plain(S, y), 10),
+                              bound=bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n, PEAK_F32))
+    return out
+
+
 def corr_variant_kernels(torch, args, nframes, nrows):
     """Kernels A, B and C+D of the CORR_IMPL variants (ops/corr_pallas.py)
     on the correlation inputs above, each against its plain version. A
@@ -600,6 +706,54 @@ def scene_oracle(scene, noise=0.0, seed=0):
         return target, np.ones((E, 2), np.float32)
 
     return oracle
+
+
+class SceneKeypoints:
+    """Classic loop closure's detector for a PlaneScene where OpenCV is
+    missing (the card's machine has none): a fixed set of points on the
+    scene's plane, uniform over the union of the frames' footprints, about
+    `per_view` in a view, each with a 32-byte descriptor, all drawn from
+    `seed`. Detecting in frame t projects them with t's ground-truth pose,
+    keeps those inside the image (the first MAX_DESC in point order) and
+    flips `flips` bits of each kept descriptor, drawn from (seed, t).
+    ``__call__(image)`` knows a frame by its array (one of `frames`)."""
+
+    def __init__(self, scene, frames, per_view=320, flips=4, seed=0):
+        from dpvo_tpu_torch.slam.retrieval import MAX_DESC
+
+        self.scene, self.flips, self.seed, self.max_desc = scene, flips, seed, MAX_DESC
+        self.frame_of = {f.ctypes.data: t for t, f in enumerate(frames)}
+        h, w = scene.ht - 1.0, scene.wd - 1.0
+        corners = []
+        for t in range(len(scene.poses)):
+            o, d = scene._rays(t, np.array([0.0, w, 0.0, w]), np.array([0.0, 0.0, h, h]))
+            corners.append(o[:2] + d[:, :2] * ((scene.depth - o[2]) / d[:, 2:3]))
+        corners = np.concatenate(corners)
+        lo, hi = corners.min(0), corners.max(0)
+        view = (scene.wd / scene.fx) * (scene.ht / scene.fy) * scene.depth ** 2
+        rng = np.random.default_rng(seed)
+        n = int(np.prod(hi - lo) / view * per_view)
+        self.points = np.concatenate([rng.uniform(lo, hi, (n, 2)),
+                                      np.full((n, 1), scene.depth)], 1)
+        self.desc = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+
+    def __call__(self, image):
+        from dpvo_tpu_torch.utils.synthetic import _nq_rotmat
+
+        t = self.frame_of[image.ctypes.data]
+        sc, pose = self.scene, self.scene.poses[t].astype(np.float64)
+        X = self.points @ _nq_rotmat(pose[3:7]).T + pose[:3]
+        u = sc.fx * X[:, 0] / X[:, 2] + sc.cx
+        v = sc.fy * X[:, 1] / X[:, 2] + sc.cy
+        inside = (X[:, 2] > 0.1) & (u >= 0) & (u < sc.wd) & (v >= 0) & (v < sc.ht)
+        idx = np.nonzero(inside)[0][:self.max_desc]
+        rng = np.random.default_rng([self.seed, t])
+        desc = self.desc[idx].copy()
+        bits = rng.integers(0, 256, (len(idx), self.flips))
+        rows = np.repeat(np.arange(len(idx)), self.flips)
+        np.bitwise_xor.at(desc, (rows, bits.ravel() // 8),
+                          (1 << (bits.ravel() % 8)).astype(np.uint8))
+        return np.stack([u[idx], v[idx]], 1).astype(np.float32), desc
 
 
 def render_main_scene(n_frames):
@@ -1152,7 +1306,8 @@ def phase_loop_closure(torch, kernels):
     and equal bits; a third with LOOP_CLOSURE false gives the ATE beside.
     Prints each round's sizes and times, peak memory, the ATEs, and the
     device time of the largest round's solve. Returns (segsum launches in
-    the first run's global-BA rounds, that round's solve stats)."""
+    the first run's global-BA rounds, the stream: scene, frames, ground
+    truth, and the ATE of the run without loop closure)."""
     from dpvo_tpu_torch import DPVO, load_config
     from dpvo_tpu_torch.ba import gba_sparse
     from dpvo_tpu_torch.lie import se3
@@ -1256,7 +1411,198 @@ def phase_loop_closure(torch, kernels):
     stats = dict(ms=cuda_ms(solve, 5), device_ms=device_ms(solve, 5, mixed=True), KP=big["KP"])
     print("loop closure: the largest round's solve (KP {KP}) timed alone: {ms:.3f} ms (event "
           "pair), device time {device_ms:.3f} ms".format(**stats))
-    return gba_segsum, stats
+    return gba_segsum, dict(scene=scene, frames=frames, gt=gt, off_ate=off["ate"])
+
+
+# Phase 7's retrieval threshold. The retrieval scores a frame pair by the mean
+# best-match hamming similarity: a random 256-bit descriptor's nearest among
+# a few hundred others differs in ~100 bits, so unrelated frames score ~0.6,
+# and a revisit's shared points (4 flipped bits each) pull it toward 0.97.
+# default.yaml's LOOP_RETR_THRESH 0.04 (a DBoW-scale value) passes every
+# query: the first candidate then fires at keyframe RADIUS + 2 onto an
+# unrelated frame, and its suppression window (RADIUS keyframes) hides the
+# real revisit. 0.8 lies between the two.
+CLC_RETR_THRESH = 0.8
+
+
+def phase_classic_lc(torch, kernels, stream):
+    """Classic loop closure at full width on phase 6's stream: DPVO with
+    config/default.yaml plus CLASSIC_LOOP_CLOSURE (LOOP_RETR_THRESH
+    CLC_RETR_THRESH) and weights/vonet_synth.npz, 480x640, its keypoints from
+    SceneKeypoints (the card's machine has no OpenCV); everything after
+    detection is the port's: native scoring and matching, the triplet BA on
+    segsum and the SPD kernel, RANSAC, the PGO on segsum and Cholesky, the
+    correction. Two inline runs (asynchronous=False) must find a candidate,
+    apply a correction, launch segsum in the triplet BAs and the PGO and the
+    SPD kernel in the triplet BAs (counters zeroed before the first run, read
+    after), give finite poses and equal bits; one run with the worker thread
+    and the PGO executor must apply a correction. Prints the retrieval
+    frames, candidates, RANSAC fits, corrections (with the keyframe ATE just
+    before and after each), each triplet BA's and PGO's time and the PGO's
+    size and LM iterations, the peak memory and the ATE beside phase 6's run
+    without loop closure; then one triplet BA and one PGO of the first run
+    timed alone. Returns the launches of each call site in the first run."""
+    from dpvo_tpu_torch import DPVO, load_config
+    from dpvo_tpu_torch.lie import se3, so3
+    from dpvo_tpu_torch.slam import long_term, pgo
+
+    scene, frames, gt = stream["scene"], stream["frames"], stream["gt"]
+    cfg = load_config(os.path.join(ROOT, "config", "default.yaml"),
+                      overrides={"CLASSIC_LOOP_CLOSURE": True,
+                                 "LOOP_RETR_THRESH": CLC_RETR_THRESH})
+    weights = os.path.join(ROOT, "weights", "vonet_synth.npz")
+    detect = SceneKeypoints(scene, frames)
+    real_tri, real_pgo, real_step = long_term._triplet_structure_ba, pgo.apply_loop_closure, \
+        pgo._pgo_step
+    real_ransac = long_term.ransac_umeyama
+
+    def timed(fn, log, kinds):
+        """fn with each call's event-pair time, host time, the launches of
+        `kinds` it made and its arguments logged."""
+        def call(*args, **kw):
+            before = {k: kernels.LAUNCHES[k] for k in kinds}
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            b.synchronize()
+            log.append(dict(ms=a.elapsed_time(b), host_ms=(time.perf_counter() - t0) * 1e3,
+                            args=(args, kw), **{k: kernels.LAUNCHES[k] - before[k] for k in kinds}))
+            return out
+        return call
+
+    def run(asynchronous):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        slam = DPVO(cfg, weights, 480, 640, detect=detect)
+        if not asynchronous:
+            slam.long_term_lc.close()
+            slam.long_term_lc = long_term.LongTermLoopClosure(cfg, slam, asynchronous=False,
+                                                              detect=detect)
+        lc = slam.long_term_lc
+        tri, pgos, steps, cands, fixes, fits, fit_R = [], [], [], [], [], [], []
+        apply = slam.apply_pgo_result
+
+        def kf_ate():  # the live keyframes against their frames' ground truth
+            p = se3.inv(torch.as_tensor(slam.poses_np())).numpy()
+            return ate_rmse(p[:, :3], gt[np.asarray(slam.tstamps[:slam.n]), :3])
+
+        def against_truth(q, rr):
+            """The fitted loop Sim(3) (cam-q points to cam-rr points, tracker
+            units) beside the truth: s against the ratio of the tracker's
+            scale at rr and at q (keyframe baselines to the neighbours against
+            the ground truth's), R against the true relative rotation."""
+            est = torch.as_tensor(slam.poses_np())
+            true = torch.as_tensor(scene.poses[np.asarray(slam.tstamps[:slam.n])])
+            step = lambda P, a, b: se3.mul(P[b], se3.inv(P[a]))[:3].norm().item()
+            scale = lambda k: np.mean([step(est, k, j) / step(true, k, j)
+                                       for j in (k - 1, k + 1) if 0 <= j < slam.n])
+            R_true = (so3.to_matrix(true[rr, 3:]) @ so3.to_matrix(true[q, 3:]).T).numpy()
+            cos = (np.trace(fit_R[-1][0].T @ R_true) - 1) / 2
+            return dict(s_true=scale(rr) / scale(q), deg=np.degrees(np.arccos(np.clip(cos, -1, 1))))
+
+        def applied(corrected):  # each correction with the keyframe ATE around it
+            (_, _, ii, jj), _ = pgos[-1]["args"]
+            before, truth = kf_ate(), against_truth(int(ii[0]), int(jj[0]))
+            apply(corrected)
+            fixes.append(dict(m=len(corrected), before=before, after=kf_ate(), s_fit=fit_R[-1][1],
+                              s=(float(corrected[:, 7].min()), float(corrected[:, 7].max())),
+                              **truth))
+
+        slam.apply_pgo_result = applied
+        package = lc._package
+        lc._package = lambda cand: (cands.append(cand), package(cand))[1]
+        long_term._triplet_structure_ba = timed(real_tri, tri, ("segsum", "spd_solve"))
+        timed_pgo = timed(real_pgo, pgos, ("segsum",))
+
+        def pgo_call(*a, **k):  # with its LM iterations (two steps each)
+            s0 = len(steps)
+            out = timed_pgo(*a, **k)
+            pgos[-1]["lm"] = (len(steps) - s0) // 2
+            return out
+
+        pgo.apply_loop_closure = pgo_call
+        pgo._pgo_step = lambda *a, **k: (steps.append(1), real_step(*a, **k))[1]
+
+        def ransac(X, Y, *a, **k):  # each loop's Sim(3) fit: points, inliers, scale
+            fit = real_ransac(X, Y, *a, **k)
+            fits.append((len(X),) + ((int(fit[3].sum()), float(fit[2])) if fit else (0, None)))
+            if fit:
+                fit_R.append((fit[0], float(fit[2])))
+            return fit
+
+        long_term.ransac_umeyama = ransac
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            for t, image in enumerate(frames):
+                slam(t, image, scene.intrinsics.copy())
+            poses, _ = slam.terminate()
+            torch.cuda.synchronize()
+        finally:
+            long_term._triplet_structure_ba, pgo.apply_loop_closure, pgo._pgo_step = \
+                real_tri, real_pgo, real_step
+            long_term.ransac_umeyama = real_ransac
+        return dict(poses=poses, n=slam.n, frames=lc.retrieval.n_frames(), cands=cands,
+                    applied=list(lc.applied), tri=tri, pgo=pgos, fixes=fixes, fits=fits,
+                    launches=dict(kernels.LAUNCHES), sec=time.perf_counter() - t0,
+                    peak=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                    ate=ate_rmse(poses[:, :3], gt[:, :3]))
+
+    inline = run(False)
+    for i, r in enumerate(inline["tri"]):
+        print(f"classic loop closure: triplet BA {i}: {r['ms']:.3f} ms (event pair), host "
+              f"{r['host_ms']:.3f} ms; segsum launches {r['segsum']}, spd_solve {r['spd_solve']}")
+    for i, r in enumerate(inline["pgo"]):
+        (poses_in, C, ii, jj), _ = r["args"]
+        print(f"classic loop closure: PGO {i}: n {len(poses_in)}, R {len(poses_in) - 1 + len(C)} "
+              f"constraints, loop {int(ii[0])} -> {int(jj[0])}, LM iterations {r['lm']}; "
+              f"{r['ms']:.3f} ms (event pair), host {r['host_ms']:.3f} ms; segsum launches "
+              f"{r['segsum']}")
+    print(f"classic loop closure: RANSAC-Umeyama fits (points, inliers, scale) {inline['fits']}")
+    for r in inline["fixes"]:
+        print("classic loop closure: a correction of {m} keyframes (scales {s[0]:.4f}-{s[1]:.4f}):"
+              " keyframe ATE {before:.5f} before it, {after:.5f} after; its loop's fitted scale "
+              "{s_fit:.4f} against the tracker's scale ratio {s_true:.4f} between the two ends "
+              "(neighbour baselines against the truth), its rotation {deg:.3f} deg from the true "
+              "relative rotation".format(**r))
+    print(f"classic loop closure: {len(frames)} frames in {inline['sec']:.1f} s, keyframes "
+          f"{inline['n']}, retrieval frames {inline['frames']}, candidates {inline['cands']}, "
+          f"corrections applied at {inline['applied']}, peak device memory "
+          f"{inline['peak']:.3f} GiB, launches "
+          f"{ {k: v for k, v in inline['launches'].items() if v} }")
+    again = run(False)
+    same = np.array_equal(inline["poses"], again["poses"]) and inline["applied"] == again["applied"]
+    print(f"classic loop closure: a second inline run bit for bit equal (poses, corrections): "
+          f"{same} (largest pose difference "
+          f"{np.abs(again['poses'] - inline['poses']).max():.3g})")
+    threaded = run(True)
+    print(f"classic loop closure, worker thread and PGO executor: corrections applied at "
+          f"{threaded['applied']}, candidates {threaded['cands']}, {threaded['sec']:.1f} s, ATE "
+          f"{threaded['ate']:.5f}")
+    print(f"classic loop closure: ATE {inline['ate']:.5f} inline, {stream['off_ate']:.5f} "
+          f"without loop closure (phase 6)")
+    sites = dict(segsum_triplet=sum(r["segsum"] for r in inline["tri"]),
+                 spd_triplet=sum(r["spd_solve"] for r in inline["tri"]),
+                 segsum_pgo=sum(r["segsum"] for r in inline["pgo"]))
+    if not inline["cands"] or not inline["applied"] or min(sites.values()) == 0 or not same \
+            or not threaded["applied"] or not all(np.isfinite(r["poses"]).all() and
+                                                  r["poses"].shape == (len(frames), 7)
+                                                  for r in (inline, again, threaded)):
+        raise AssertionError(f"classic loop closure: no candidate or correction, kernels not "
+                             f"launched at their call sites ({sites}), two inline runs that "
+                             "differ, or bad poses")
+    # one triplet BA and one PGO of the first run, timed alone
+    for name, fn, r in (("triplet BA", real_tri, inline["tri"][0]),
+                        ("PGO", real_pgo, inline["pgo"][0])):
+        args, kw = r["args"]
+        call = lambda: fn(*args, **kw)
+        print(f"classic loop closure: the first {name} timed alone: {cuda_ms(call, 3, 1):.3f} ms "
+              f"(event pair), device time {device_ms(call, 3, 1, mixed=True):.3f} ms")
+    return sites
 
 
 def main():
@@ -1303,8 +1649,11 @@ def main():
         raise AssertionError("global BA: two card runs differ or no segment sum ran")
     print(f"phase 5: small-path parity ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    gba_segsum, _ = phase_loop_closure(torch, kernels)
+    gba_segsum, stream = phase_loop_closure(torch, kernels)
     print(f"phase 6: loop closure ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    lc_sites = phase_classic_lc(torch, kernels, stream)
+    print(f"phase 7: classic loop closure ok ({time.perf_counter() - t0:.1f} s)")
 
     cp_src, cp_tpu = "dpvo_tpu_torch/csrc/corr_pallas.cu", "dpvo_tpu/ops/corr_pallas.py"
     meta = {  # source, the TPU kernel's pallas_call, the run whose launches count
@@ -1317,6 +1666,15 @@ def main():
                        {"segsum_gba": gba_segsum}),
         "spd_solve": ("dpvo_tpu_torch/csrc/spd_solve.cu", "dpvo_tpu/ba/spd_solve.py:81",
                       launches),
+        # classic loop closure's call sites (phase 7's first run); the JAX
+        # package's PGO sums are XLA scatters, its triplet BA's depth sum the
+        # one-hot matmul (no kd_order)
+        "segsum_pgo": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68",
+                       lc_sites),
+        "segsum_triplet": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68",
+                           lc_sites),
+        "spd_triplet": ("dpvo_tpu_torch/csrc/spd_solve.cu", "dpvo_tpu/ba/spd_solve.py:81",
+                        lc_sites),
         "corr_window": (cp_src, f"{cp_tpu}:188", impl_launches["pallas"]),
         "corr_sw_fused": (cp_src, f"{cp_tpu}:336", impl_launches["pallas_sw"]),
         "corr_v3_fused": (cp_src, f"{cp_tpu}:620, {cp_tpu}:552", impl_launches["pallas_dma"]),

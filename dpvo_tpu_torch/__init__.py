@@ -8,9 +8,10 @@ first use by ``kernels.py``), with a plain PyTorch version beside it
 that runs for CPU tensors.
 
 Layers (mirroring ``dpvo_tpu``):
-  lie/      SE(3)/SO(3)                 geom/     projective ops
+  lie/      SE(3)/SO(3)/Sim(3)          geom/     projective ops
   ops/      patchify + correlation      models/   encoders + update operator
-  ba/       sliding-window Schur BA     runtime/  VO state machine (DPVO)
+  ba/       window and global BA        runtime/  VO state machine (DPVO)
+  slam/     both loop closures          eval/     alignment, ATE
   utils/    synthetic scenes
 """
 

@@ -51,5 +51,5 @@ def segment_sum(payload, kd, order, Md: int):
     rc = lib.dpvo_segment_sum(payload.data_ptr(), kd.data_ptr(), order.data_ptr(),
                               out.data_ptr(), E, K, Md, int(bf16), kernels.stream_ptr(payload))
     kernels.check("segment_sum", rc)
-    kernels.LAUNCHES["segsum_bf16" if bf16 else "segsum"] += 1
+    kernels.count("segsum_bf16" if bf16 else "segsum")
     return out

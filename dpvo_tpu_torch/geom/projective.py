@@ -1,9 +1,8 @@
 """Projective geometry for patch-based VO — plain tensor functions.
 
-Port of ``dpvo_tpu/geom/projective.py`` (SE(3) branch; the Sim(3)
-branch waits for the ``sim3`` port). Shapes are edge-major:
+Port of ``dpvo_tpu/geom/projective.py``. Shapes are edge-major:
 
-  poses       [N, 7]
+  poses       [N, 7] SE(3), or [N, 8] Sim(3) (t, q, s)
   patches     [Mtot, 3, P, P]    (x, y, inverse-depth planes)
   intrinsics  [N, 4]             (fx, fy, cx, cy)
   ii, jj, kk  [E] int            source frame / target frame / patch
@@ -13,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from dpvo_tpu_torch.lie import se3
+from dpvo_tpu_torch.lie import se3, sim3
 
 MIN_DEPTH_Z = 0.2
 
@@ -46,20 +45,26 @@ def transform(poses, patches, intrinsics, ii, jj, kk, jacobian: bool = False,
     Returns coords [E,P,P,2]; with ``valid`` also an [E] float mask
     (Z > 0.2 at the patch centre); with ``jacobian`` also the analytic
     (Ji [E,2,6], Jj [E,2,6], Jz [E,2,1]) at the patch centre. ``depth``
-    [Mtot] overrides the depth plane with the live inverse depth.
+    [Mtot] overrides the depth plane with the live inverse depth. Sim(3)
+    poses [N, 8] give Ji / Jj of [E,2,7], the 7th column the scale's.
     """
+    is_sim3 = poses.shape[-1] == 8
+    grp = sim3 if is_sim3 else se3
     pk = patches[kk]
     if depth is not None:
         pk = torch.cat([pk[:, :2], depth[kk][:, None, None, None].expand_as(pk[:, 2:])], dim=1)
     X0 = iproj(pk, intrinsics[ii])
 
-    Gij = se3.mul(poses[jj], se3.inv(poses[ii]))
+    Gij = grp.mul(poses[jj], grp.inv(poses[ii]))
     if tonly:
         unit_q = torch.zeros_like(se3.q_of(Gij))
         unit_q[:, 3] = 1.0
-        Gij = se3.make(se3.t_of(Gij), unit_q)
+        if is_sim3:
+            Gij = sim3.make(sim3.t_of(Gij), unit_q, torch.ones_like(sim3.s_of(Gij)))
+        else:
+            Gij = se3.make(se3.t_of(Gij), unit_q)
 
-    X1 = se3.act4(Gij[:, None, None, :], X0)
+    X1 = grp.act4(Gij[:, None, None, :], X0)
     x1 = proj(X1, intrinsics[jj])
 
     P = patches.shape[-1]
@@ -77,15 +82,28 @@ def transform(poses, patches, intrinsics, ii, jj, kk, jacobian: bool = False,
     big = torch.abs(Zc) > MIN_DEPTH_Z
     d = torch.where(big, 1.0 / torch.where(big, Zc, torch.ones_like(Zc)), o)
 
-    Ja = torch.stack(
-        [
-            Hc, o, o, o, Zc, -Yc,
-            o, Hc, o, -Zc, o, Xc,
-            o, o, Hc, Yc, -Xc, o,
-            o, o, o, o, o, o,
-        ],
-        dim=-1,
-    ).reshape(-1, 4, 6)
+    # d X1 / d xi_j of the 4 homogeneous coordinates; Sim(3) adds the
+    # scale's column (X, Y, Z, 0)
+    if is_sim3:
+        Ja = torch.stack(
+            [
+                Hc, o, o, o, Zc, -Yc, Xc,
+                o, Hc, o, -Zc, o, Xc, Yc,
+                o, o, Hc, Yc, -Xc, o, Zc,
+                o, o, o, o, o, o, o,
+            ],
+            dim=-1,
+        ).reshape(-1, 4, 7)
+    else:
+        Ja = torch.stack(
+            [
+                Hc, o, o, o, Zc, -Yc,
+                o, Hc, o, -Zc, o, Xc,
+                o, o, Hc, Yc, -Xc, o,
+                o, o, o, o, o, o,
+            ],
+            dim=-1,
+        ).reshape(-1, 4, 6)
     Jp = torch.stack(
         [
             fx * d, o, -fx * Xc * d * d, o,
@@ -95,8 +113,8 @@ def transform(poses, patches, intrinsics, ii, jj, kk, jacobian: bool = False,
     ).reshape(-1, 2, 4)
 
     Jj = Jp @ Ja
-    Ji = -se3.adjT(Gij[:, None, :], Jj)
-    Tcol = se3.to_matrix(Gij)[..., :, 3]
+    Ji = -grp.adjT(Gij[:, None, :], Jj)
+    Tcol = grp.to_matrix(Gij)[..., :, 3]
     Jz = Jp @ Tcol[..., None]
     return x1, val, (Ji, Jj, Jz)
 

@@ -8,9 +8,10 @@ and loaded with ``ctypes``. Nothing is built or loaded at import: the
 CPU tests import every module of the package on machines without
 ``nvcc`` or a card.
 
-``LAUNCHES`` counts each kernel's launches; a wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+``LAUNCHES`` counts each kernel's launches; a wrapper adds one
+(``count``) where it launches its kernel and nowhere else, so a run can
+show that its main path went through the kernels. Classic loop closure's
+PGO launches from its own thread, so the count is taken under a lock.
 """
 
 from __future__ import annotations
@@ -56,9 +57,19 @@ _lock = threading.Lock()
 _lib = None
 
 
+_count_lock = threading.Lock()
+
+
+def count(name: str):
+    """One launch of kernel `name` (thread-safe)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:

@@ -93,5 +93,5 @@ def corr_features(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3,
         E, Np, mem, C, H1, W1, H2, W2, int(bf16), int(clamp),
         kernels.stream_ptr(coords))
     kernels.check("corr", rc)
-    kernels.LAUNCHES["corr"] += 1
+    kernels.count("corr")
     return out

@@ -221,7 +221,7 @@ def corr_window(f1, fmap, jj, valid, sy, sx):
         f1.data_ptr(), fmap.data_ptr(), jj.data_ptr(), valid.data_ptr(), sy.data_ptr(),
         sx.data_ptr(), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
     kernels.check("corr_window", rc)
-    kernels.LAUNCHES["corr_window"] += 1
+    kernels.count("corr_window")
     return out
 
 
@@ -241,7 +241,7 @@ def _superwindow_fused(name, args):
     rc = getattr(kernels.load(), "dpvo_" + name)(
         *(t.data_ptr() for t in args), out.data_ptr(), E, mem, H, W, C, kernels.stream_ptr(f1))
     kernels.check(name, rc)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
     return out
 
 

@@ -28,7 +28,16 @@ inactive and active edges (``_run_global_ba``: the scale-gauge guard,
 then ``ba/gba_sparse.gba``) in place of the sliding-window BA, once per
 frame count; ``terminate`` proposes a last batch and runs 12 such rounds.
 Loop edges stay out of the removal window while their target frame is in
-the optimization window. ``CLASSIC_LOOP_CLOSURE`` is not ported.
+the optimization window.
+
+Classic loop closure (``CLASSIC_LOOP_CLOSURE``, ``slam/long_term.py``):
+each frame's image goes to the retrieval (``long_term_lc(image, n)``)
+before tracking; after tracking an initialized frame takes one candidate's
+geometry and PGO (``attempt_loop_closure``) and applies a finished
+correction (``lc_callback`` -> ``apply_pgo_result``); a culled keyframe
+leaves the retrieval (``keyframe(k)``), and ``terminate`` finishes the
+candidates before the proximity batch. Its ORB detector needs OpenCV, or
+the caller's ``detect(image) -> (pts, desc)``.
 
 The oracle hook: ``slam.oracle = fn(slam, es) -> (target, weight)``,
 numpy [E, 2] for the host ``EdgeSet`` es, replaces the network's
@@ -54,7 +63,9 @@ from dpvo_tpu_torch.runtime.state import make_state
 from dpvo_tpu_torch.runtime.steps import StepFunctions, edge_tensors
 from dpvo_tpu_torch.runtime.topology import Topology, dense_rank
 from dpvo_tpu_torch.runtime.weights import load_networks
+from dpvo_tpu_torch.slam.long_term import LongTermLoopClosure
 from dpvo_tpu_torch.slam.proximity import edges_loop
+from dpvo_tpu_torch.slam.retrieval import Detect
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,14 +93,13 @@ class DPVO:
     centroids (integer x in [1, w-1), y in [1, h-1) at 1/4 resolution)
     and the random inverse depths used before initialization. By default
     they come from a CPU ``torch.Generator`` seeded with ``seed``, so the
-    draws do not depend on the device.
+    draws do not depend on the device. ``detect``: classic loop closure's
+    keypoint detector (``slam/retrieval.OrbRetrieval``), OpenCV's ORB when
+    None.
     """
 
     def __init__(self, cfg: Config, network=None, ht: int = 480, wd: int = 640, device=None,
-                 seed: int = 0, draws: Optional[Draws] = None):
-        if cfg.CLASSIC_LOOP_CLOSURE:
-            raise NotImplementedError("CLASSIC_LOOP_CLOSURE is not ported yet (it needs Sim(3), "
-                                      "PGO and retrieval)")
+                 seed: int = 0, draws: Optional[Draws] = None, detect: Optional[Detect] = None):
         if cfg.CENTROID_SEL_STRAT != "RANDOM":
             raise NotImplementedError(f"CENTROID_SEL_STRAT={cfg.CENTROID_SEL_STRAT} is not "
                                       "ported yet (RANDOM only)")
@@ -124,6 +134,9 @@ class DPVO:
         self._norm_clamp_hits = 0
         # fn(slam, EdgeSet) -> (target, weight) numpy [E, 2], or None
         self.oracle = None
+        # classic loop closure; without OpenCV and a detector this raises
+        self.long_term_lc = (LongTermLoopClosure(cfg, self, detect=detect)
+                             if cfg.CLASSIC_LOOP_CLOSURE else None)
 
     @property
     def n(self) -> int:
@@ -132,6 +145,12 @@ class DPVO:
     @property
     def m(self) -> int:
         return self.topo.m
+
+    def poses_np(self) -> np.ndarray:
+        """The live keyframes' poses [n, 7], the pending keyframe decisions
+        applied first."""
+        self._drain()
+        return self.state.poses[: self.n].cpu().numpy()
 
     def _random_draws(self, frame: int):
         M = self.cfg.PATCHES_PER_FRAME
@@ -157,6 +176,8 @@ class DPVO:
         # retire frames beyond the pipeline depth: apply their decisions
         while len(self._inflights) >= max(cfg.PIPELINE_DEPTH, 1):
             self._drain_one()
+        if self.long_term_lc is not None:
+            self.long_term_lc(image, self.n)
         run_gba = cfg.LOOP_CLOSURE and (
             self.n + 1 - self.last_global_ba >= cfg.GLOBAL_OPT_FREQ
             or (self.topo.ii < self.n + 1 - cfg.REMOVAL_WINDOW - 1).any())
@@ -212,6 +233,9 @@ class DPVO:
             self.update()
             self.keyframe()
             self._drain()  # decided inline, as the JAX tracker's non-fused frame
+        if self.long_term_lc is not None and self.is_initialized:
+            self.long_term_lc.attempt_loop_closure(self.n)
+            self.long_term_lc.lc_callback()
 
     def _cap_depths(self, kk_new):
         """The steady frame's depth-variable guard (the JAX fused frame's):
@@ -364,6 +388,8 @@ class DPVO:
             self.topo.shift_frame(k)
             del self.tstamps[k]
             self.steps._keyframe_shift(self.state, k, self.n)
+            if self.long_term_lc is not None:
+                self.long_term_lc.keyframe(k)
 
         # retire edges whose patches fell out of the optimization window,
         # loop edges into the optimization window excepted
@@ -395,14 +421,42 @@ class DPVO:
         traj[t] = out
         return out
 
+    def _rescale_deltas(self, scales: np.ndarray):
+        """After a Sim(3) PGO: scale each culled frame's stored relative
+        translation by the scale of the keyframe its chain ends at."""
+        t2s = {self.tstamps[i]: float(scales[i]) for i in range(min(self.n, len(scales)))}
+        for t, (t0, dP) in self.delta.items():
+            t_src = t
+            while t_src in self.delta:
+                t_src, _ = self.delta[t_src]
+            dP = np.asarray(dP, np.float32).copy()
+            dP[:3] *= t2s.get(t_src, 1.0)
+            self.delta[t] = (t0, dP)
+
+    @torch.no_grad()
+    def apply_pgo_result(self, corrected: np.ndarray):
+        """Rewrite the poses of keyframes < m from a finished PGO's Sim(3)
+        poses corrected [m, 8] (t, q, s), and divide their patches' inverse
+        depths by s."""
+        self._drain()
+        m = len(corrected)
+        self._rescale_deltas(corrected[:, 7])
+        q = corrected[:, 3:7] / np.linalg.norm(corrected[:, 3:7], axis=-1, keepdims=True)
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        self.steps._apply_pgo(self.state, t(np.concatenate([corrected[:, :3], q], 1)),
+                              t(corrected[:, 7]), m)
+
     @torch.no_grad()
     def terminate(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Apply the pending keyframe decisions, propose a last batch of loop
-        edges (LOOP_CLOSURE), then 12 final update rounds, each with a global
-        BA while loop edges are active; returns camera-to-world poses [T,7]
-        for every frame (culled ones through their relative-pose chain) and
-        the timestamps."""
+        """Apply the pending keyframe decisions, finish classic loop
+        closure's candidates (CLASSIC_LOOP_CLOSURE), propose a last batch of
+        loop edges (LOOP_CLOSURE), then 12 final update rounds, each with a
+        global BA while loop edges are active; returns camera-to-world poses
+        [T,7] for every frame (culled ones through their relative-pose chain)
+        and the timestamps."""
         self._drain()
+        if self.long_term_lc is not None:
+            self.long_term_lc.terminate(self.n)
         if self.cfg.LOOP_CLOSURE:
             lkk, ljj = edges_loop(self)
             if len(lkk) > 0:

@@ -262,6 +262,14 @@ class StepFunctions:
             buf[torch.as_tensor(dst, device=self.device)] = \
                 buf[torch.as_tensor(src, device=self.device)]
 
+    def _apply_pgo(self, state: VOState, poses_new, scales, m: int):
+        """Apply a Sim(3) PGO result: poses < m from poses_new [>= m, 7],
+        and their patches' inverse depths divided by their frame's scale
+        (scales [>= m])."""
+        M = self.cfg.PATCHES_PER_FRAME
+        state.poses[:m] = poses_new[:m]
+        state.dvec[:m * M] = state.dvec[:m * M] / scales[:m].repeat_interleave(M)
+
     # ---------------- global BA + gauge ----------------
 
     def _normalize(self, state: VOState, n: int, m: int):

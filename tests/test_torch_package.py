@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,9 +36,11 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "dpvo_tpu"))
 print(len(names), bad, all(m in names for m in REQUIRED))
 """
-# modules the import check must reach (the loop-closure slice's among them)
+# modules the import check must reach (the loop-closure slices' among them)
 REQUIRED = ("dpvo_tpu_torch.slam.proximity", "dpvo_tpu_torch.ba.gba_sparse",
-            "dpvo_tpu_torch.runtime.dpvo")
+            "dpvo_tpu_torch.runtime.dpvo", "dpvo_tpu_torch.lie.sim3", "dpvo_tpu_torch.slam.pgo",
+            "dpvo_tpu_torch.slam.retrieval", "dpvo_tpu_torch.slam.long_term",
+            "dpvo_tpu_torch.eval.ate")
 
 
 def test_imports_no_jax():
@@ -47,7 +50,7 @@ def test_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad, required = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 28 and bad == "[]" and required == "True", out.stdout
+    assert int(count) >= 37 and bad == "[]" and required == "True", out.stdout
 
 
 def test_dpvo_without_device_needs_a_card(monkeypatch):
@@ -64,20 +67,46 @@ def test_dpvo_without_device_needs_a_card(monkeypatch):
     assert DPVO(cfg, None, 32, 32, device="cpu").device.type == "cpu"
 
 
+_LC_KW = dict(BUFFER_SIZE=16, PATCHES_PER_FRAME=4, DIM=32, FDIM=16, E_MAX=64, E_INAC_MAX=64,
+              M_OPT_MAX=32, W_OPT_MAX=8, MAX_EDGE_AGE=8, MIXED_PRECISION=False)
+
+
 def test_loop_closure_is_ported_classic_is_not():
-    """LOOP_CLOSURE (proximity loop closure, config/slam.yaml) builds a
-    tracker; CLASSIC_LOOP_CLOSURE, which needs Sim(3), PGO and retrieval,
-    is refused."""
+    """Both loop-closure backends build a tracker: LOOP_CLOSURE (proximity,
+    config/slam.yaml) and, with OpenCV for its ORB detector,
+    CLASSIC_LOOP_CLOSURE (retrieval, Sim(3), PGO), which now is ported too
+    (the name is the test's from before that port)."""
+    pytest.importorskip("cv2")
     from dpvo_tpu_torch import DPVO, load_config
     from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.slam.long_term import LongTermLoopClosure
 
     assert load_config(os.path.join(ROOT, "config", "slam.yaml")).LOOP_CLOSURE
-    kw = dict(BUFFER_SIZE=16, PATCHES_PER_FRAME=4, DIM=32, FDIM=16, E_MAX=64, E_INAC_MAX=64,
-              M_OPT_MAX=32, W_OPT_MAX=8, MAX_EDGE_AGE=8, MIXED_PRECISION=False)
-    slam = DPVO(Config(LOOP_CLOSURE=True, **kw), None, 32, 32, device="cpu")
-    assert slam.ran_global_ba == set() and slam.oracle is None
-    with pytest.raises(NotImplementedError, match="CLASSIC_LOOP_CLOSURE"):
-        DPVO(Config(CLASSIC_LOOP_CLOSURE=True, **kw), None, 32, 32, device="cpu")
+    slam = DPVO(Config(LOOP_CLOSURE=True, **_LC_KW), None, 32, 32, device="cpu")
+    assert slam.ran_global_ba == set() and slam.oracle is None and slam.long_term_lc is None
+    slam = DPVO(Config(CLASSIC_LOOP_CLOSURE=True, **_LC_KW), None, 32, 32, device="cpu")
+    assert isinstance(slam.long_term_lc, LongTermLoopClosure)
+    assert slam.long_term_lc.retrieval.detect is None  # OpenCV's ORB, made at the first image
+    slam.long_term_lc.close()
+
+
+def test_classic_loop_closure_without_opencv_needs_a_detector(monkeypatch):
+    """Without OpenCV and without a detector a CLASSIC_LOOP_CLOSURE tracker
+    raises (it never disables itself); a detector the caller gives is
+    enough."""
+    import sys
+
+    from dpvo_tpu_torch import DPVO
+    from dpvo_tpu_torch.config import Config
+
+    monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 fails
+    cfg = Config(CLASSIC_LOOP_CLOSURE=True, **_LC_KW)
+    with pytest.raises(RuntimeError, match="OpenCV"):
+        DPVO(cfg, None, 32, 32, device="cpu")
+    detect = lambda image: (np.zeros((0, 2), np.float32), np.zeros((0, 32), np.uint8))
+    slam = DPVO(cfg, None, 32, 32, device="cpu", detect=detect)
+    assert slam.long_term_lc.retrieval.detect is detect
+    slam.long_term_lc.close()
 
 
 def test_card_tracker_rejects_a_window_beyond_the_pose_solve(monkeypatch):
@@ -156,6 +185,32 @@ def test_wrapper_runs_plain_on_cpu(name):
     out = _requests("cpu")[name]()
     assert out.device.type == "cpu"
     assert kernels.LAUNCHES == before  # CPU requests launch nothing
+
+
+def test_launch_counts_survive_threads():
+    """Launches counted from several threads at once (the PGO executor beside
+    the tracking thread) are all kept, with a tiny switch interval; the
+    count is a read-modify-write, which the interpreter does not promise to
+    keep whole without the lock."""
+    import threading
+
+    from dpvo_tpu_torch import kernels
+
+    before = kernels.LAUNCHES["segsum"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [kernels.count("segsum") for _ in range(2000)])
+                   for _ in range(16)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(w.is_alive() for w in workers)
+    assert kernels.LAUNCHES["segsum"] - before == 16 * 2000
+    kernels.LAUNCHES["segsum"] = before
 
 
 def test_kernel_library_needs_a_card(monkeypatch):
