@@ -22,7 +22,12 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    call sites: segsum_pgo (the PGO's H [4R, 49] and g [2R, 7] at 60 poses),
    segsum_triplet (the triplet BA's [1024, 26] into 512 depths), bit for bit,
    and spd_triplet (n = 24: the identity system bit for bit, a random one
-   within 1e-4)). Print the error and the median time of the kernel, the plain
+   within 1e-4); and the training path's: corr_bwd, the correlation's
+   backward kernel, at the last unroll step's 18000 edges (bf16 and f32
+   features, within an ulp of the plain version), segsum_train (BA's
+   [18000, 92] into 1200 depths, forward bit for bit, backward the gather)
+   and spd_train (n = 90, forward and backward)). Print the error and the
+   median time of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (``library_ms``): each an event pair around one call, host launch
    included (``ms``), and for the kernels also the device time of their
@@ -77,6 +82,18 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    PGO executor (a correction applied). The retrieval frames, candidates,
    corrections, each triplet BA's and PGO's time and size, peak memory and
    the ATE beside phase 6's run without loop closure are printed, not gated.
+8. Training at full width: python -m dpvo_tpu_torch.apps.train's main()
+   (Config(), bf16, --dataset synthetic, 480x640, 15 frames, 18 unroll
+   steps, weights/vonet_synth.npz) for 3 steps, counters zeroed before:
+   finite losses and gradient norms above 0, the parameters moved, the
+   correlation (forward and backward), segment-sum and SPD kernels
+   launched, the metrics JSONL and the npz snapshot written and the
+   snapshot loading into load_networks. Then one structure-only and one
+   full step through make_train_step at that shape, timed by phase
+   (forward, backward, optimizer) with their peak memory, one more under
+   the profiler (top 15), and 20 steps on one fixed small clip
+   (tests/test_train.py's configuration), whose loss must fall below 0.7x
+   its start.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs a CUDA device and
@@ -248,6 +265,7 @@ def phase_kernels(torch, kernels):
     out.update(corr_variant_kernels(torch, args, nframes, nrows))
 
     out.update(segsum_kernels(torch, g))
+    out.update(train_kernels(torch, g))
     out.update(segsum_gba_kernels(torch, g))
     out.update(classic_lc_kernels(torch, g))
 
@@ -349,6 +367,158 @@ def segsum_kernels(torch, g):
                          plain_ms=cuda_ms(lambda: [segment_sum_plain(p, kd, Md)
                                                    for p, kd, _, Md in calls], 10),
                          bound=bound(nbytes, kept * calls[0][0].shape[1], PEAK_F32))
+    return out
+
+
+# the training path's shapes (phase 8): Config()'s 80 patches a frame, a
+# 15-frame clip, its last unroll step's edges (every patch to every frame)
+TRAIN_F, TRAIN_M, TRAIN_H, TRAIN_W, TRAIN_C = 15, 80, 120, 160, 128
+TRAIN_E = TRAIN_F * TRAIN_M * TRAIN_F  # 18000
+
+
+def train_corr_case(torch, g, dtype):
+    """corr_bwd's inputs at the last unroll step: gmap [F*M, C, 3, 3], the
+    two maps of F frames, patch rows kk = every patch once per target
+    frame, coords of patches 1 px apart around centres over the map and 8
+    px past its borders (3-6 px apart on 5% of the edges), 3% of the edges
+    invalid, and the incoming gradient [E, 9, 128]."""
+    dev = torch.device("cuda")
+    E, F, M, H, W, C = TRAIN_E, TRAIN_F, TRAIN_M, TRAIN_H, TRAIN_W, TRAIN_C
+    gmap = torch.randn((F * M, C, 3, 3), generator=g, device=dev).to(dtype)
+    fmap1 = torch.randn((F, H, W, C), generator=g, device=dev).to(dtype)
+    fmap2 = torch.randn((F, H // 4, W // 4, C), generator=g, device=dev).to(dtype)
+    ctr = torch.rand((E, 1, 1, 2), generator=g, device=dev) * torch.tensor(
+        [W + 16.0, H + 16.0], device=dev) - 8.0
+    off = torch.stack(torch.meshgrid(torch.arange(-1.0, 2.0, device=dev),
+                                     torch.arange(-1.0, 2.0, device=dev), indexing="ij"), -1)
+    spread = torch.where(torch.rand((E, 1, 1, 1), generator=g, device=dev) < 0.05,
+                         3 + 3 * torch.rand((E, 1, 1, 1), generator=g, device=dev),
+                         torch.ones((E, 1, 1, 1), device=dev))
+    coords = (ctr + spread * off.flip(-1)[None]
+              + 0.3 * torch.randn((E, 3, 3, 2), generator=g, device=dev)).contiguous()
+    kk = (torch.arange(E, device=dev) // F).to(torch.int32)
+    jj = (torch.arange(E, device=dev) % F).to(torch.int32)
+    valid = torch.rand(E, generator=g, device=dev) > 0.03
+    gout = torch.randn((E, 9, 128), generator=g, device=dev).to(torch.bfloat16)
+    order = torch.argsort(kk, stable=True).to(torch.int32)
+    return gout, gmap, fmap1, fmap2, coords, kk, jj, valid, order
+
+
+def train_kernels(torch, g):
+    """The training path's kernels at its shapes (phase 8's last unroll
+    step): corr_bwd against corr_backward_plain (bf16 and f32 features),
+    and the forward plus backward of BA's segment sum and of the pose
+    solve at n = 6 F = 90."""
+    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+    from dpvo_tpu_torch.ba.spd_solve import spd_solve, spd_solve_plain
+    from dpvo_tpu_torch.ops.corr import corr_backward_plain
+    from dpvo_tpu_torch.ops.corr_cuda import corr_backward
+
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = train_corr_case(torch, g, dtype)
+        got = corr_backward(*args)
+        want = corr_backward_plain(*args[:-1])
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("gmap", "fmap1", "fmap2"), got, want):
+            a, b = a.float(), b.float()
+            # f32 sums in another order (atomics into the maps), then, for
+            # bf16 features, one rounding of each to bf16: an ulp of the value
+            ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+            tol = ulp * torch.maximum(a.abs(), b.abs()) + 1e-5 * b.abs().max()
+            err = (a - b).abs()
+            errs.append(err.max().item())
+            print(f"corr_bwd ({str(dtype)[6:]}): d {name} max_abs_err {err.max().item():.4g} "
+                  f"(max |value| {b.abs().max().item():.4g}), beyond tolerance "
+                  f"{int((err > tol).sum())}")
+            if (err > tol).any():
+                raise AssertionError(f"corr_bwd disagrees with its plain version ({name}, {dtype})")
+        again = corr_backward(*args)
+        print(f"corr_bwd ({str(dtype)[6:]}): a second launch bit for bit equal: d gmap "
+              f"{torch.equal(again[0], got[0])}, d fmaps {torch.equal(again[1], got[1])} "
+              f"{torch.equal(again[2], got[2])} (atomics: not required)")
+    gout, gmap, fmap1, fmap2, coords, kk, jj, valid, order = args
+    E, C = TRAIN_E, TRAIN_C
+    # bytes it must move: g, the features, coords and int32/bool indices read
+    # once; the f32 map gradients and the per-edge patch gradients written
+    # once; the dots: per edge and level 9 pixels x 64 positions x C, twice
+    # (d f1 and d fmap), on bf16 operands: at the bf16 rate, as corr's row
+    nbytes = (gout.numel() * 2 + (gmap.numel() + fmap1.numel() + fmap2.numel()) * 2
+              + coords.numel() * 4 + E * 9 + (fmap1.numel() + fmap2.numel()) * 4
+              + E * C * 9 * 4)
+    flops = int(valid.sum()) * 2 * 9 * 64 * C * 2 * 2
+    call = lambda: corr_backward(*args)
+    out["corr_bwd"] = dict(max_abs_err=max(errs), ms=cuda_ms(call, 10),
+                           device_ms=device_ms(call, 10, mixed=True),
+                           plain_ms=cuda_ms(lambda: corr_backward_plain(*args[:-1]), 2, warmup=1),
+                           library_ms=None, bound=bound(nbytes, flops, PEAK_BF16))
+
+    # BA's depth reduction at the training shape: [E, 6F + 2] f32 into F*M
+    # rows, forward and backward (the gather of its gradient)
+    K, Md = 6 * TRAIN_F + 2, TRAIN_F * TRAIN_M
+    pay = torch.randn((E, K), generator=g, device=dev)
+    kd = kk[torch.randperm(E, generator=g, device=dev)]
+    kd_order = torch.argsort(kd, stable=True).to(torch.int32)
+    gy = torch.randn((Md, K), generator=g, device=dev)
+
+    def fwd_bwd():
+        p = pay.clone().requires_grad_()
+        y = segment_sum(p, kd, kd_order, Md)
+        (gp,) = torch.autograd.grad(y, p, gy)
+        return y, gp
+
+    y, gp = fwd_bwd()
+    same = torch.equal(y.cpu(), segment_sum_plain(pay.cpu(), kd.cpu(), Md)) and \
+        torch.equal(gp, gy[kd.long()])
+    print(f"segsum_train: forward bit for bit equal to the plain version, backward the gather: "
+          f"{same}")
+    if not same:
+        raise AssertionError("segsum_train: the kernel or its gradient disagrees")
+    lib = lambda: (torch.zeros((Md, K), device=dev).index_add_(0, kd.long(), pay),
+                   gy[kd.long()])
+    out["segsum_train"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(fwd_bwd, 50), device_ms=device_ms(fwd_bwd, 50, mixed=True),
+        plain_ms=cuda_ms(lambda: (segment_sum_plain(pay, kd, Md), gy[kd.long()]), 10),
+        library_ms=cuda_ms(lib, 50),
+        # payload and ids read, sums written; the gradient read by id, written
+        bound=bound(E * K * 4 + E * 8 + Md * K * 4 + E * K * 4 * 2, E * K, PEAK_F32))
+
+    # the pose solve at n = 6 F = 90, forward and backward
+    n = 6 * TRAIN_F
+    A = torch.randn((n, n), generator=g, device=dev)
+    S = (A @ A.T + n * torch.eye(n, device=dev)).contiguous()
+    yv = torch.randn(n, generator=g, device=dev)
+    w = torch.randn(n, generator=g, device=dev)
+
+    def solve_fwd_bwd():
+        Sg, yg = S.clone().requires_grad_(), yv.clone().requires_grad_()
+        x = spd_solve(Sg, yg)
+        return (x,) + torch.autograd.grad(x, (Sg, yg), w)
+
+    x, dS, dy = solve_fwd_bwd()
+    xp = spd_solve_plain(S, yv)
+    yb = spd_solve_plain(S, w)
+    errs = [(a - b).abs().max().item() / b.abs().max().item()
+            for a, b in zip((x, dS, dy), (xp, -torch.outer(yb, xp), yb))]
+    print(f"spd_train (n = {n}): relative max error x {errs[0]:.3g}, dS {errs[1]:.3g}, "
+          f"dy {errs[2]:.3g}")
+    if max(errs) > 1e-4:
+        raise AssertionError("spd_train: the SPD kernel's forward or backward disagrees")
+
+    def lib_solve():
+        Sg, yg = S.clone().requires_grad_(), yv.clone().requires_grad_()
+        xl = torch.linalg.solve(Sg, yg)
+        return torch.autograd.grad(xl, (Sg, yg), w)
+
+    out["spd_train"] = dict(
+        max_abs_err=(x - xp).abs().max().item(), ms=cuda_ms(solve_fwd_bwd, 50),
+        device_ms=device_ms(solve_fwd_bwd, 50, mixed=True),
+        plain_ms=cuda_ms(lambda: (spd_solve_plain(S, yv), spd_solve_plain(S, w)), 5),
+        library_ms=cuda_ms(lib_solve, 50),
+        # two solves: S, y and g read, x and y_bar written, dS [n, n] written
+        bound=bound((n * n + 2 * n) * 4 * 2 + n * n * 4, 2 * (n ** 3 / 3 + 2 * n * n), PEAK_F32))
     return out
 
 
@@ -981,7 +1151,7 @@ def phase_corr_impls(torch, kernels):
     return launches
 
 
-def _print_profile(prof, wall_ms, n, top=15):
+def _print_profile(prof, wall_ms, n, top=15, unit="frame"):
     """Device time by kernel over n profiled frames, the `top` costliest by
     name (profiler wall time includes its own overhead; the busy share is
     kernel time / wall)."""
@@ -992,17 +1162,17 @@ def _print_profile(prof, wall_ms, n, top=15):
     if busy_us == 0:
         print("profile: the profiler recorded no device time (busy share not measured)")
         return
-    print(f"profile over {n} frames: wall {wall_ms / n:.3f} ms/frame, kernel time "
-          f"{busy_us / 1e3 / n:.3f} ms/frame (busy {100 * busy_us / 1e3 / wall_ms:.1f}%), "
-          f"{sum(e.count for e in evs) / n:.0f} kernel launches/frame")
+    print(f"profile over {n} {unit}s: wall {wall_ms / n:.3f} ms/{unit}, kernel time "
+          f"{busy_us / 1e3 / n:.3f} ms/{unit} (busy {100 * busy_us / 1e3 / wall_ms:.1f}%), "
+          f"{sum(e.count for e in evs) / n:.0f} kernel launches/{unit}")
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/frame {e.count / n:7.1f}/frame  "
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/{unit} {e.count / n:7.1f}/{unit}  "
               f"{e.key[:100]}")
     for name in ("window_union_kernel", "sw_fused_kernel", "v3_fused_kernel"):  # A, B, C+D
         mine = [e for e in evs if name in e.key]
         if mine:
             print(f"  {name}: {sum(e.self_device_time_total for e in mine) / 1e3 / n:.4f} "
-                  f"ms/frame in {sum(e.count for e in mine) / n:.1f} launches/frame")
+                  f"ms/{unit} in {sum(e.count for e in mine) / n:.1f} launches/{unit}")
 
 
 def _sync(dst, src):
@@ -1605,6 +1775,133 @@ def phase_classic_lc(torch, kernels, stream):
     return sites
 
 
+# Phase 8: the train entry point at full width (Config(): 80 patches a frame,
+# DIM 384, FDIM 128, bf16) from weights/vonet_synth.npz, the recipe's clip
+# (15 frames, 18 unroll steps) at 480x640; then the fixed-clip overfit check
+# at tests/test_train.py's tiny configuration (64x96, 5 frames, 4 steps)
+TRAIN_STEPS = 3
+OVERFIT_STEPS = 20
+
+
+def phase_training(torch, kernels):
+    """The training path through its entry points: python -m
+    dpvo_tpu_torch.apps.train's main() for TRAIN_STEPS steps, one
+    structure-only step and one full step through make_train_step at the
+    same shape (timed by phase, the full one also profiled), then
+    OVERFIT_STEPS steps on one fixed small clip. Returns the launches of
+    the entry point's run."""
+    import shutil
+
+    from dpvo_tpu_torch.apps import train as train_app
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.data.factory import SyntheticClipDataset
+    from dpvo_tpu_torch.runtime.weights import init_networks, load_networks, load_npz
+    from dpvo_tpu_torch.train import make_optimizer, make_train_step
+    from dpvo_tpu_torch.train.step import Optimizer
+    from dpvo_tpu_torch.utils.synthetic import PlaneScene
+
+    dev = torch.device("cuda")
+    outdir = os.path.join(ROOT, "runs", "chip_smoke_train")  # git-ignored
+    shutil.rmtree(outdir, ignore_errors=True)
+    npz = os.path.join(ROOT, "weights", "vonet_synth.npz")
+    argv = ["--dataset", "synthetic", "--ht", "480", "--wd", "640", "--n_frames", "15",
+            "--unroll", "18", "--batch", "1", "--init_npz", npz, "--steps", str(TRAIN_STEPS),
+            "--log_every", "1", "--npz_every", str(TRAIN_STEPS), "--ckpt_every", "1000000",
+            "--name", "smoke", "--outdir", outdir]
+    print(f"training: python -m dpvo_tpu_torch.apps.train {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    nets, opt_state = train_app.main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    with open(os.path.join(outdir, "runs", "smoke", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"training: {TRAIN_STEPS} steps in {sec:.1f} s (clip rendering and the first "
+          f"step's set-up included), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for r in rows:
+        print("training: step {step}: loss {loss:.5g} gnorm {gnorm:.5g} flow {flow:.4g} tr "
+              "{tr:.4g} ro {ro:.4g} px1 {px1:.4g} ({steps_per_s:.3f} steps/s)".format(**r))
+    snap = os.path.join(outdir, "checkpoints", f"smoke_{TRAIN_STEPS:06d}.npz")
+    cfg = Config()
+    start = load_networks(cfg, npz).state_dict()
+    moved = sum(not torch.equal(v.cpu(), start[k]) for k, v in nets.state_dict().items())
+    loaded = load_networks(cfg, snap).state_dict()
+    same = all(torch.equal(v.cpu(), loaded[k]) for k, v in nets.state_dict().items())
+    need = ("corr", "corr_bwd", "segsum", "segsum_bf16", "spd_solve")
+    if len(rows) != TRAIN_STEPS or not all(np.isfinite(r["loss"]) and np.isfinite(r["gnorm"])
+                                          and r["gnorm"] > 0 for r in rows) \
+            or moved == 0 or not same or min(launches[k] for k in need) == 0 \
+            or len(load_npz(snap)) != len(start):
+        raise AssertionError(f"training: a loss or gradient norm not finite or zero, the "
+                             f"parameters unmoved ({moved} moved), the npz snapshot not the "
+                             f"trained weights ({same}), or a kernel of {need} not launched")
+    print(f"training: {moved} of {len(start)} parameter tensors moved; the npz snapshot loads "
+          f"into load_networks with the trained weights: {same}")
+
+    # one structure-only and one full step through make_train_step, timed by phase
+    clip = SyntheticClipDataset(n_frames=15, ht=480, wd=640, seed=5).sample()
+    batch = {k: v[None] for k, v in zip(("images", "poses", "disps", "intrinsics"), clip)}
+    tx, _ = make_optimizer(lr=8e-5, total_steps=240000)
+    step = make_train_step(cfg, tx, STEPS=18)
+    step.timed = True
+    gen = torch.Generator().manual_seed(3)
+    for so in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        nets, opt_state, m = step(nets, opt_state, batch, gen, structure_only=so)
+        m = {k: float(v) for k, v in m.items()}
+        wall = time.perf_counter() - t0
+        print("training: a {} step: {:.3f} s (forward {forward:.3f}, backward {backward:.3f}, "
+              "optimizer {optimizer:.3f}), peak device memory {:.3f} GiB; loss {:.5g} gnorm "
+              "{:.5g}".format("structure-only" if so else "full", wall,
+                              torch.cuda.max_memory_allocated() / 2**30, m["loss"], m["gnorm"],
+                              **step.times))
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["gnorm"]) and m["gnorm"] > 0):
+            raise AssertionError("training: a step through make_train_step gave a non-finite "
+                                 "loss or a zero gradient")
+    from torch.profiler import ProfilerActivity, profile
+
+    step.timed = False
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(nets, opt_state, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _print_profile(prof, wall, 1, top=15, unit="train step")
+
+    # the overfit check: one fixed small clip, constant-lr AdamW, f32
+    small = Config(PATCHES_PER_FRAME=4, DIM=32, FDIM=16, MIXED_PRECISION=False)
+    HT, WD, F = 64, 96, 5
+    scene = PlaneScene(ht=HT, wd=WD, n_frames=F, depth=4.0, seed=3)
+    ys, xs = np.mgrid[0:HT, 0:WD]
+    fixed = dict(images=np.stack([scene.render(t) for t in range(F)])[None].astype(np.float32),
+                 poses=scene.poses[None].astype(np.float32),
+                 disps=np.stack([scene.inv_depth(t, xs.astype(np.float64), ys.astype(np.float64))
+                                 for t in range(F)])[None].astype(np.float32),
+                 intrinsics=scene.intrinsics[None].astype(np.float32))
+    tiny = init_networks(small, torch.Generator().manual_seed(0)).to(dev)
+    otx = Optimizer(lambda count: 3e-4, clip=10.0, weight_decay=1e-4)
+    ost = otx.init({k: p.detach() for k, p in tiny.named_parameters()})
+    ostep = make_train_step(small, otx, STEPS=4)
+    gen = torch.Generator().manual_seed(1)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(OVERFIT_STEPS):
+        tiny, ost, m = ostep(tiny, ost, fixed, gen)
+        losses.append(float(m["loss"]))
+    first, last = float(np.median(losses[:5])), float(np.median(losses[-5:]))
+    print(f"training: fixed-clip overfit ({OVERFIT_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s): median loss of the first 5 steps {first:.5g}, of "
+          f"the last 5 {last:.5g} ({last / first:.3f}x); losses {[round(x, 4) for x in losses]}")
+    if not (np.isfinite(losses).all() and last < 0.7 * first):
+        raise AssertionError("training: the fixed-clip loss did not fall below 0.7x its start")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1654,6 +1951,9 @@ def main():
     t0 = time.perf_counter()
     lc_sites = phase_classic_lc(torch, kernels, stream)
     print(f"phase 7: classic loop closure ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    train_launches = phase_training(torch, kernels)
+    print(f"phase 8: training ok ({time.perf_counter() - t0:.1f} s)")
 
     cp_src, cp_tpu = "dpvo_tpu_torch/csrc/corr_pallas.cu", "dpvo_tpu/ops/corr_pallas.py"
     meta = {  # source, the TPU kernel's pallas_call, the run whose launches count
@@ -1675,6 +1975,16 @@ def main():
                            lc_sites),
         "spd_triplet": ("dpvo_tpu_torch/csrc/spd_solve.cu", "dpvo_tpu/ba/spd_solve.py:81",
                         lc_sites),
+        # the training path (phase 8's entry-point run): the correlation's
+        # backward pass (XLA's autodiff in the JAX package: no Pallas kernel),
+        # and BA's segment sum and the pose solve forward and backward
+        "corr_bwd": ("dpvo_tpu_torch/csrc/corr_bwd.cu",
+                     "dpvo_tpu/ops/corr.py:287 (XLA autodiff of corr_features_xla)",
+                     train_launches),
+        "segsum_train": ("dpvo_tpu_torch/csrc/segsum.cu", "dpvo_tpu/ba/segsum_pallas.py:68",
+                         {"segsum_train": train_launches["segsum"]}),
+        "spd_train": ("dpvo_tpu_torch/csrc/spd_solve.cu", "dpvo_tpu/ba/spd_solve.py:81",
+                      {"spd_train": train_launches["spd_solve"]}),
         "corr_window": (cp_src, f"{cp_tpu}:188", impl_launches["pallas"]),
         "corr_sw_fused": (cp_src, f"{cp_tpu}:336", impl_launches["pallas_sw"]),
         "corr_v3_fused": (cp_src, f"{cp_tpu}:620, {cp_tpu}:552", impl_launches["pallas_dma"]),

@@ -1,10 +1,13 @@
 """Sorted segment sum for BA assembly and SoftAgg's grouped sums: the
-CUDA kernel's wrapper (``csrc/segsum.cu``) and its plain version.
+CUDA kernel's wrapper (``csrc/segsum.cu``), its plain version, and the
+autograd Function around both.
 
 Port of ``dpvo_tpu/ba/segsum_pallas.py:segment_sum_sorted``: the
 depth-indexed reduction of ``ba/solver.assemble_normal_eqs``. The JAX
 call site sorts the payload on the way in (``payload[kd_order]``); here
-the kernel reads through ``order`` itself.
+the kernel reads through ``order`` itself. The gradient of a segment sum
+is a gather of the output's gradient by segment id (``SegmentSum``), the
+adjoint that XLA derives for the JAX package's sums: no kernel of its own.
 """
 
 from __future__ import annotations
@@ -24,19 +27,53 @@ def segment_sum_plain(payload, kd, Md: int):
     sums in an order that varies."""
     kd = kd.long()
     idx = torch.where((kd < 0) | (kd >= Md), Md, kd)
-    out = torch.zeros((Md + 1, payload.shape[1]), dtype=torch.float32, device=payload.device)
-    return out.index_add_(0, idx, payload.float())[:Md]
+    dt = torch.promote_types(payload.dtype, torch.float32)  # f64 stays f64 (gradcheck)
+    out = torch.zeros((Md + 1, payload.shape[1]), dtype=dt, device=payload.device)
+    return out.index_add_(0, idx, payload.to(dt))[:Md]
+
+
+class SegmentSum(torch.autograd.Function):
+    """The segment sum with its gradient: forward the kernel on a card and
+    the plain version on the CPU; backward the gather g[kd] in the
+    payload's dtype, zero for the rows whose id is dropped."""
+
+    @staticmethod
+    def forward(ctx, payload, kd, order, Md: int):
+        ctx.save_for_backward(kd)
+        ctx.Md, ctx.dtype = Md, payload.dtype
+        if payload.device.type == "cpu":
+            return segment_sum_plain(payload, kd, Md)
+        return _segment_sum_kernel(payload, kd, order, Md)
+
+    @staticmethod
+    def backward(ctx, g):
+        (kd,) = ctx.saved_tensors
+        return segment_sum_backward(g, kd, ctx.Md, ctx.dtype), None, None, None
+
+
+def segment_sum_backward(g, kd, Md: int, dtype):
+    """d payload [E, K] of a segment sum from d out [Md, K]: g[kd[e]] where
+    kd[e] is in [0, Md), else zero; in ``dtype``."""
+    kd = kd.long()
+    keep = (kd >= 0) & (kd < Md)
+    rows = g[torch.where(keep, kd, torch.zeros_like(kd))]
+    return torch.where(keep[:, None], rows, torch.zeros_like(rows)).to(dtype)
 
 
 def segment_sum(payload, kd, order, Md: int):
     """out[s] = sum of payload[e] over edges with kd[e] == s, s < Md, in
-    f32; ids outside [0, Md) are dropped.
+    f32; ids outside [0, Md) are dropped. Differentiable in payload.
 
     payload [E, K] f32 or bf16; kd [E] ids; order [E] a stable argsort of
     kd (the kernel's contract: kd[order] is non-decreasing; the plain
-    version does not need it). On the card kd and order are int32."""
-    if payload.device.type == "cpu":
-        return segment_sum_plain(payload, kd, Md)
+    version does not need it, and takes None). On the card kd and order
+    are int32."""
+    return SegmentSum.apply(payload, kd, order, Md)
+
+
+def _segment_sum_kernel(payload, kd, order, Md: int):
+    if order is None:
+        raise ValueError("segment_sum: the kernel needs the stable order of kd")
     E, K = payload.shape
     if payload.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"segment_sum: payload must be f32 or bf16, got {payload.dtype}")

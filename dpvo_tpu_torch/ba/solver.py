@@ -170,9 +170,9 @@ def apply_pose_retr(poses, dX, t0: int, nfree: int):
     """poses[t0+l] <- Exp(dX[l]) * poses[t0+l] for l < nfree."""
     if nfree <= 0:
         return poses
-    out = poses.clone()
-    out[t0:t0 + nfree] = se3.retr(poses[t0:t0 + nfree], dX[:nfree])
-    return out
+    # no in-place write: training differentiates through the poses
+    return torch.cat([poses[:t0], se3.retr(poses[t0:t0 + nfree], dX[:nfree]),
+                      poses[t0 + nfree:]])
 
 
 def apply_depth_retr(depths, dZ, clamp_mode: str = "runtime"):

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"corr": 0, "segsum": 0, "segsum_bf16": 0, "spd_solve": 0, "corr_window": 0,
-            "corr_sw_fused": 0, "corr_v3_fused": 0}
+            "corr_sw_fused": 0, "corr_v3_fused": 0, "corr_bwd": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +42,9 @@ _SIGNATURES = {
     # gmap, fmap1, fmap2, coords, ii1, jj1, valid, out,
     # E, Np, mem, C, H1, W1, H2, W2, is_bf16, clamp, stream
     "dpvo_corr_features": [_VP] * 8 + [_I] * 10 + [_VP],
+    # g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, df1, dfm1, dfm2,
+    # E, Np, mem, C, H1, W1, H2, W2, feat_bf16, g_bf16, stream
+    "dpvo_corr_backward": [_VP] * 11 + [_I] * 10 + [_VP],
     # f1, fmap, jj, valid, corner y, corner x, out, E, mem, H, W, C, stream
     "dpvo_corr_window": [_VP] * 7 + [_I] * 5 + [_VP],
     # f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf, out, E, mem, H, W, C, stream

@@ -103,6 +103,11 @@ def retr(g, xi):
     return mul(exp(xi), g)
 
 
+def scale(g, s):
+    """Scale the translation by s, which broadcasts over the leading axes."""
+    return make(t_of(g) * torch.as_tensor(s, dtype=g.dtype, device=g.device)[..., None], q_of(g))
+
+
 def adjT(g, a):
     """Apply Adj(g)^T to a cotangent row-vector a [...,6]."""
     R = so3.to_matrix(q_of(g))

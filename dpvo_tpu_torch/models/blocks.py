@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+from dpvo_tpu_torch.ba.segsum import segment_sum
 
 GRAD_CLIP = 0.01
 
@@ -73,10 +73,9 @@ def grouped_sum(x, seg, num_segments: int, order=None):
     ``index_add_`` sums with float atomics in an order that varies. On the
     CPU its plain version, ``index_add_``, which there adds the rows one
     after another: the same bits as the kernel. order: a stable argsort of
-    seg for the kernel, computed here when not given."""
-    if x.device.type == "cpu":
-        return segment_sum_plain(x, seg, num_segments)
-    if order is None:
+    seg for the kernel, computed here when not given. Differentiable in x
+    (``ba/segsum.SegmentSum``)."""
+    if order is None and x.device.type != "cpu":
         order = torch.argsort(seg, stable=True).to(seg.dtype)
     return segment_sum(x.contiguous(), seg, order, num_segments)
 

@@ -164,6 +164,68 @@ def corr_features_plain(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int
     return out.to(torch.bfloat16)
 
 
+def corr_backward_plain(g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3,
+                        chunk: int = 1024):
+    """Gradients (d gmap, d fmap1, d fmap2) of ``corr_features_plain``
+    (exact windows) with respect to the features, from g = d out
+    [E, P*P, 2*(2r+2)^2]; the coordinates get none. The arithmetic of the
+    card's backward kernel (``csrc/corr_bwd.cu``) step by step, in f32,
+    per level l (coords / 1 and / 4):
+
+      G[e,p,i,j]   = sum over the bilinear taps (a, b) with (i, j) = (u+a,
+                     v+b) of w_ab(p) g[e,p,u,v], u, v < 2r+1; zero where
+                     the window position lies outside the image
+      d f1[e,p,c]  = sum_ij G[e,p,i,j] fmap_l[jj, y0+i-r, x0+j-r, c]
+      d fmap_l[jj, y, x, c] += sum_p G[e,p,i,j] f1[e,p,c]
+      d gmap[k]    = sum over the edges with ii1[e] = k of d f1[e]
+
+    Edges with ``valid`` false contribute nothing, and neither does a
+    pixel with non-finite coordinates. Each gradient in its feature's
+    dtype."""
+    E, P = coords.shape[0], coords.shape[1]
+    P2, D = P * P, 2 * radius + 2
+    d = D - 1
+    Np, C = gmap.shape[0], gmap.shape[1]
+    g = (g.float().reshape(E, P2, 2, D, D)[..., :d, :d]
+         * valid.reshape(E, 1, 1, 1, 1).to(torch.float32))
+    offs = torch.arange(D, device=coords.device)
+    df1 = torch.zeros((E, P2, C), dtype=torch.float32, device=coords.device)
+    dfmaps = []
+    for lvl, (fmap, scale) in enumerate(((fmap1, 1.0), (fmap2, 4.0))):
+        mem, H, W, _ = fmap.shape
+        fflat = fmap.reshape(mem * H * W, C)
+        dfm = torch.zeros((mem * H * W, C), dtype=torch.float32, device=coords.device)
+        for s in range(0, E, chunk):
+            cs = (coords[s:s + chunk] / scale).reshape(-1, P2, 2)
+            Ec = cs.shape[0]
+            x, y = cs[..., 0], cs[..., 1]
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            xf = torch.floor(torch.nan_to_num(x).clamp(-64.0, W + 64.0))
+            yf = torch.floor(torch.nan_to_num(y).clamp(-64.0, H + 64.0))
+            fx = (x - xf)[..., None, None]
+            fy = (y - yf)[..., None, None]
+            gl = g[s:s + chunk, :, lvl]
+            G = torch.zeros((Ec, P2, D, D), dtype=torch.float32, device=coords.device)
+            G[..., :d, :d] += (1 - fy) * (1 - fx) * gl
+            G[..., :d, 1:] += (1 - fy) * fx * gl
+            G[..., 1:, :d] += fy * (1 - fx) * gl
+            G[..., 1:, 1:] += fy * fx * gl
+            ix = (xf.long() - radius)[..., None, None] + offs[None, None, None, :]
+            iy = (yf.long() - radius)[..., None, None] + offs[None, None, :, None]
+            ok = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H) & fin[..., None, None]
+            G = torch.where(ok, G, torch.zeros_like(G)).reshape(Ec, P2, D * D)
+            lin = (jj1[s:s + chunk].long()[:, None, None, None] * (H * W)
+                   + iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(Ec, P2, D * D)
+            f1 = gmap[ii1[s:s + chunk]].reshape(Ec, C, P2).transpose(1, 2).float()
+            df1[s:s + chunk] += torch.einsum("epk,epkc->epc", G, fflat[lin].float())
+            dfm.index_add_(0, lin.reshape(-1), (G[..., None] * f1[:, :, None, :]).reshape(-1, C))
+        dfmaps.append(dfm.reshape(mem, H, W, C).to(fmap.dtype))
+    kd = ii1.long()
+    dgmap = torch.zeros((Np, C * P2), dtype=torch.float32, device=coords.device)
+    dgmap.index_add_(0, kd, df1.transpose(1, 2).reshape(E, C * P2))
+    return (dgmap.reshape(gmap.shape).to(gmap.dtype), *dfmaps)
+
+
 def patchify(fmap, coords, radius: int):
     """Bilinear window gather at centroids.
 

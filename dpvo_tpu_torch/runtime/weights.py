@@ -6,7 +6,10 @@ parameter under a ``keystr`` path such as
 The port's modules carry the flax names, so the translation is
 mechanical: Conv HWIO -> OIHW, Dense [in, out] -> Linear [out, in],
 flax LayerNorm ``scale``/``bias`` -> ``weight``/``bias`` (its inner
-``LayerNorm_0`` level dropped).
+``LayerNorm_0`` level dropped). ``params_to_jax`` is the inverse, key for
+key (training snapshots in the ``save_params`` format, which both
+packages' trackers load). ``init_networks`` draws a fresh start from
+flax's initialisers' distributions (not their draws).
 """
 
 from __future__ import annotations
@@ -67,6 +70,59 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> "OrderedDict[str, torch.Tens
             raise KeyError(f"two flax parameters map to {tkey}")
         out[tkey] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The flat flax keys and layouts of a ``Networks`` state dict (the
+    inverse of ``params_from_jax``): OIHW -> HWIO, Linear [out, in] ->
+    Dense [in, out], a LayerNorm's weight -> ``scale`` under its inner
+    ``LayerNorm_0``."""
+    out: Dict[str, np.ndarray] = {}
+    for tkey, t in state.items():
+        *path, name = tkey.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if name == "weight" and a.ndim == 4:
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif name == "weight" and a.ndim == 2:
+            leaf, a = "kernel", a.T
+        elif name == "weight" and a.ndim == 1 and path[-1].startswith("LayerNorm_"):
+            leaf = "scale"
+        elif name == "bias" and a.ndim == 1:
+            leaf = "bias"
+        else:
+            raise KeyError(f"unexpected parameter {tkey} with shape {a.shape}")
+        if path[-1].startswith("LayerNorm_"):
+            path = path + ["LayerNorm_0"]
+        parts = [path[0], "params"] + path[1:] + [leaf]
+        out["".join(f"['{p}']" for p in parts)] = np.ascontiguousarray(a)
+    return out
+
+
+def save_npz(path: str, state: Dict[str, torch.Tensor]):
+    """Write a state dict in the JAX package's ``save_params`` format."""
+    np.savez(path, **params_to_jax(state))
+
+
+LECUN_TRUNC = 0.87962566103423978  # std of the standard normal truncated to [-2, 2]
+
+
+def init_networks(cfg: Config, generator: torch.Generator) -> Networks:
+    """Networks with flax's default initialisers' distributions: Dense and
+    Conv kernels lecun_normal (a normal truncated to +-2 std, std
+    1/sqrt(fan_in) after the truncation), biases zero, LayerNorm scale one
+    and bias zero."""
+    nets = Networks(cfg)
+    with torch.no_grad():
+        for name, p in nets.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.ndim == 1:  # LayerNorm scale
+                p.fill_(1.0)
+            else:
+                fan_in = p[0].numel()  # Linear [out, in]: in; Conv OIHW: I*H*W
+                std = (1.0 / fan_in) ** 0.5 / LECUN_TRUNC
+                torch.nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+    return nets
 
 
 def load_networks(cfg: Config, network=None, seed: int = 0) -> Networks:

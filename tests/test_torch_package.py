@@ -40,7 +40,10 @@ print(len(names), bad, all(m in names for m in REQUIRED))
 REQUIRED = ("dpvo_tpu_torch.slam.proximity", "dpvo_tpu_torch.ba.gba_sparse",
             "dpvo_tpu_torch.runtime.dpvo", "dpvo_tpu_torch.lie.sim3", "dpvo_tpu_torch.slam.pgo",
             "dpvo_tpu_torch.slam.retrieval", "dpvo_tpu_torch.slam.long_term",
-            "dpvo_tpu_torch.eval.ate")
+            "dpvo_tpu_torch.eval.ate", "dpvo_tpu_torch.models.vonet", "dpvo_tpu_torch.train",
+            "dpvo_tpu_torch.train.step", "dpvo_tpu_torch.train.loss", "dpvo_tpu_torch.train.logger",
+            "dpvo_tpu_torch.data.augmentation", "dpvo_tpu_torch.data.factory",
+            "dpvo_tpu_torch.apps.train")
 
 
 def test_imports_no_jax():
@@ -50,7 +53,7 @@ def test_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad, required = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 37 and bad == "[]" and required == "True", out.stdout
+    assert int(count) >= 47 and bad == "[]" and required == "True", out.stdout
 
 
 def test_dpvo_without_device_needs_a_card(monkeypatch):
@@ -124,12 +127,39 @@ def test_card_tracker_rejects_a_window_beyond_the_pose_solve(monkeypatch):
     assert DPVO(cfg, None, 32, 32, device="cpu").device.type == "cpu"
 
 
+def test_train_entry_point_needs_a_card(monkeypatch):
+    """python -m dpvo_tpu_torch.apps.train runs on the card unless --device
+    cpu; without a card it raises."""
+    from dpvo_tpu_torch.apps import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--dataset", "synthetic", "--steps", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.resolve_device("cuda")
+    assert train.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("flags, item", [(["--init_encoders", "onnx_dir"], "item 7"),
+                                         (["--mesh", "2,4"], "item 8"),
+                                         (["--dataset", "tartan"], "item 7")])
+def test_train_entry_point_unported_options_raise(flags, item):
+    """The options whose pieces are not ported name their ROADMAP item."""
+    from dpvo_tpu_torch.apps import train
+
+    args = ["--device", "cpu", "--steps", "0"] + flags
+    if "--dataset" not in flags:
+        args += ["--dataset", "synthetic"]
+    with pytest.raises(NotImplementedError, match=item):
+        train.main(args)
+
+
 def _requests(device):
     """One request per wrapper, on the given device."""
     from dpvo_tpu_torch.ba.segsum import segment_sum
     from dpvo_tpu_torch.ba.spd_solve import spd_solve
     from dpvo_tpu_torch.ops import corr_pallas as cp
-    from dpvo_tpu_torch.ops.corr_cuda import corr_features
+    from dpvo_tpu_torch.ops.corr_cuda import corr_backward, corr_features
 
     t = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype, device=device)
     i = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
@@ -137,6 +167,9 @@ def _requests(device):
     return {
         "corr": lambda: corr_features(t(4, 8, 3, 3), t(2, 8, 8, 8), t(2, 2, 2, 8),
                                       t(5, 3, 3, 2), i(5), i(5), t(5, dtype=torch.bool)),
+        "corr_bwd": lambda: corr_backward(t(5, 9, 128, dtype=bf), t(4, 8, 3, 3), t(2, 8, 8, 8),
+                                          t(2, 2, 2, 8), t(5, 3, 3, 2), i(5), i(5),
+                                          t(5, dtype=torch.bool))[0],
         "segsum": lambda: segment_sum(t(6, 3), i(6), i(6), 4),
         "segsum_bf16": lambda: segment_sum(t(6, 8, dtype=bf), i(6), i(6), 4),
         "spd_solve": lambda: spd_solve(torch.eye(4, device=device), t(4)),
@@ -152,7 +185,7 @@ def _requests(device):
 
 
 KERNELS = ["corr", "segsum", "segsum_bf16", "spd_solve", "corr_window", "corr_sw_fused",
-           "corr_v3_fused"]
+           "corr_v3_fused", "corr_bwd"]
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -168,6 +201,7 @@ def test_wrapper_never_falls_back(name, monkeypatch):
         raise AssertionError("plain version ran for a non-CPU request")
 
     monkeypatch.setattr(corr_cuda, "corr_features_plain", forbidden)
+    monkeypatch.setattr(corr_cuda, "corr_backward_plain", forbidden)
     monkeypatch.setattr(segsum, "segment_sum_plain", forbidden)
     monkeypatch.setattr(spd, "spd_solve_plain", forbidden)
     for plain in ("corr_window_plain", "superwindow_plain", "epilogue_sw_plain",
