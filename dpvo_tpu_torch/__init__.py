@@ -11,9 +11,19 @@ Layers (mirroring ``dpvo_tpu``):
   lie/      SE(3)/SO(3)/Sim(3)          geom/     projective ops
   ops/      patchify + correlation      models/   encoders + update operator
   ba/       window and global BA        runtime/  VO state machine (DPVO)
-  slam/     both loop closures          eval/     alignment, ATE
-  utils/    synthetic scenes
+  slam/     both loop closures          eval/     ATE, writers, protocol
+  train/    losses, optimizer, steps    data/     clips, readers, TartanAir
+  deploy/   torch.export programs       apps/     entry points, viewer
+  utils/    synthetic scenes, numpy SE(3), optional imports
 """
 
 from dpvo_tpu_torch.config import Config, load_config  # noqa: F401
-from dpvo_tpu_torch.runtime.dpvo import DPVO  # noqa: F401
+
+
+def __getattr__(name):
+    # DPVO on first use: a reader or viewer process, which the spawn context
+    # starts by importing this package, then imports no torch
+    if name == "DPVO":
+        from dpvo_tpu_torch.runtime.dpvo import DPVO
+        return DPVO
+    raise AttributeError(f"module 'dpvo_tpu_torch' has no attribute {name!r}")

@@ -6,8 +6,14 @@ fresh start, npz snapshots (the JAX ``save_params`` format, which both
 packages' trackers load), checkpoints of parameters, optimizer state and
 step (``torch.save``), and held-out validation with a divergence guard.
 
-  python -m dpvo_tpu_torch.apps.train --name exp1 --dataset synthetic \\
-      --steps 240000 --n_frames 15 --batch 1
+  python -m dpvo_tpu_torch.apps.train --name exp1 --datapath datasets/TartanAir \\
+      --steps 240000 --n_frames 15 --batch 1 [--init_encoders onnx_models]
+
+``--dataset tartan`` (the default) reads TartanAir scenes under
+``--datapath`` (``data/tartan.py``); where it holds none, synthetic clips,
+as in the JAX package. ``--init_encoders DIR`` loads the reference's
+``fnet.onnx`` and ``inet.onnx`` into the encoders
+(``runtime/torch_port.py``).
 
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
 """
@@ -82,15 +88,9 @@ def resolve_device(name: str) -> torch.device:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.init_encoders:
-        raise NotImplementedError("--init_encoders needs the ONNX encoder import, which is not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
     if args.mesh:
         raise NotImplementedError("--mesh (multi-card training) is not ported yet (ROADMAP "
                                   "queue 1, item 8)")
-    if args.dataset == "tartan":
-        raise NotImplementedError("--dataset tartan: the TartanAir reader is not ported yet "
-                                  "(ROADMAP queue 1, item 7); use --dataset synthetic")
     device = resolve_device(args.device)
 
     from dpvo_tpu_torch.config import Config, load_config
@@ -108,6 +108,12 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32, as in the tracker
         torch.backends.cudnn.allow_tf32 = False
     nets = init_networks(cfg, torch.Generator().manual_seed(0))
+    if args.init_encoders:
+        from dpvo_tpu_torch.runtime.torch_port import port_reference_encoders
+
+        port_reference_encoders(nets, os.path.join(args.init_encoders, "fnet.onnx"),
+                                os.path.join(args.init_encoders, "inet.onnx"))
+        print(f"encoders initialized from {args.init_encoders}")
     if args.init_npz:
         nets.load_state_dict(params_from_jax(load_npz(args.init_npz)), strict=True)
         print(f"warm-started from {args.init_npz}")

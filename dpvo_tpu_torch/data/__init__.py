@@ -1,3 +1,3 @@
-"""Training data: synthetic clips, augmentation and the batcher (port of
-``dpvo_tpu/data``'s factory and augmentation; the TartanAir reader is not
-ported yet)."""
+"""Data: synthetic clips, the TartanAir reader, augmentation and the
+batcher; frame streams, file readers and RGB-D helpers (port of
+``dpvo_tpu/data``)."""

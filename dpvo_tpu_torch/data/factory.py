@@ -1,10 +1,10 @@
-"""Synthetic training clips and the batcher.
+"""Training datasets and the batcher.
 
 Port of ``dpvo_tpu/data/factory.py``: ``SyntheticClipDataset`` renders
 procedural multi-plane clips (``utils/synthetic.MultiPlaneScene``) from a
-seed, ``dataset_factory`` builds it (the TartanAir reader is not ported:
-``tartan`` raises), and ``batch_iterator`` augments and batches clips on a
-background thread, optionally from a reservoir of the newest clips.
+seed, ``dataset_factory`` builds it or the TartanAir reader
+(``data/tartan.py``), and ``batch_iterator`` augments and batches clips on
+a background thread, optionally from a reservoir of the newest clips.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Iterator
 import numpy as np
 
 from dpvo_tpu_torch.data.augmentation import augment_clip
+from dpvo_tpu_torch.data.tartan import TartanAirDataset
 from dpvo_tpu_torch.utils.synthetic import MultiPlaneScene
 
 
@@ -60,9 +61,13 @@ class SyntheticClipDataset:
 
 def dataset_factory(names, datapath="datasets/TartanAir", n_frames=15, ht=None, wd=None, seed=0,
                     **synth_kw):
+    """The TartanAir reader for ``"tartan"`` in names; when datapath holds no
+    scene, a warning and synthetic clips, as the JAX factory does."""
     if "tartan" in names:
-        raise NotImplementedError("the TartanAir reader is not ported yet (ROADMAP queue 1, "
-                                  "item 7); use the synthetic dataset")
+        ds = TartanAirDataset(datapath, n_frames=n_frames, seed=seed)
+        if ds.scenes:
+            return ds
+        print(f"warning: no TartanAir scenes under {datapath}; using synthetic clips")
     return SyntheticClipDataset(n_frames=n_frames, ht=ht or 128, wd=wd or 160, seed=seed,
                                 **synth_kw)
 

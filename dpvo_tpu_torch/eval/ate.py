@@ -1,6 +1,5 @@
-"""Umeyama Sim(3) alignment and ATE-RMSE — numpy, a copy of the two
-functions of ``dpvo_tpu/eval/ate.py`` (the rest of that module, its
-timestamp association and file formats, is not ported yet)."""
+"""Umeyama Sim(3) alignment, ATE-RMSE and the TUM protocol's timestamp
+association — numpy, a copy of ``dpvo_tpu/eval/ate.py``."""
 
 from __future__ import annotations
 
@@ -34,3 +33,23 @@ def ate_rmse(est_xyz: np.ndarray, gt_xyz: np.ndarray, align_scale: bool = True) 
     est_aligned = (s * (R @ est_xyz.T)).T + t
     err = np.linalg.norm(est_aligned - gt_xyz, axis=1)
     return float(np.sqrt((err**2).mean()))
+
+
+def associate(t_est: np.ndarray, t_gt: np.ndarray, max_dt: float = 0.02):
+    """Associate two timestamp arrays (TUM protocol): for each est stamp
+    find the closest gt stamp within max_dt. Returns index pairs."""
+    ie, ig = [], []
+    order = np.argsort(t_gt)
+    t_gt_sorted = t_gt[order]
+    for i, t in enumerate(t_est):
+        j = np.searchsorted(t_gt_sorted, t)
+        best, bestd = None, max_dt
+        for cand in (j - 1, j):
+            if 0 <= cand < len(t_gt_sorted):
+                d = abs(t_gt_sorted[cand] - t)
+                if d <= bestd:
+                    best, bestd = cand, d
+        if best is not None:
+            ie.append(i)
+            ig.append(order[best])
+    return np.asarray(ie), np.asarray(ig)

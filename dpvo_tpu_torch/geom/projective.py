@@ -119,6 +119,16 @@ def transform(poses, patches, intrinsics, ii, jj, kk, jacobian: bool = False,
     return x1, val, (Ji, Jj, Jz)
 
 
+def point_cloud(poses, patches, intrinsics, ix, depth=None):
+    """Lift patches [E,3,P,P] of frames ix [E] to world-frame homogeneous
+    points [E,P,P,4]; ``depth`` [E] overrides the depth plane."""
+    if depth is not None:
+        patches = torch.cat([patches[:, :2], depth[:, None, None, None].expand_as(patches[:, 2:])],
+                            dim=1)
+    X = iproj(patches, intrinsics[ix])
+    return se3.act4(se3.inv(poses[ix])[:, None, None, :], X)
+
+
 def flow_mag(poses, patches, intrinsics, ii, jj, kk, beta: float = 0.3, depth=None):
     """Blended full/translation-only flow magnitude.
 

@@ -74,7 +74,7 @@ def grouped_sum(x, seg, num_segments: int, order=None):
     CPU its plain version, ``index_add_``, which there adds the rows one
     after another: the same bits as the kernel. order: a stable argsort of
     seg for the kernel, computed here when not given. Differentiable in x
-    (``ba/segsum.SegmentSum``)."""
+    (the op ``ba/segsum.segment_sum``)."""
     if order is None and x.device.type != "cpu":
         order = torch.argsort(seg, stable=True).to(seg.dtype)
     return segment_sum(x.contiguous(), seg, order, num_segments)

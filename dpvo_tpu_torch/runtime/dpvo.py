@@ -39,6 +39,14 @@ leaves the retrieval (``keyframe(k)``), and ``terminate`` finishes the
 candidates before the proximity batch. Its ORB detector needs OpenCV, or
 the caller's ``detect(image) -> (pts, desc)``.
 
+A ``network`` directory written by ``deploy/export.py`` (it holds
+``patchify.pt2``) runs the exported patchify and update programs in place
+of the modules, after its ``meta.json`` is checked against the tracker's
+geometry and configuration, as the JAX tracker runs its StableHLO
+directory. ``viz=True`` starts the viewer process (``apps/viewer.py``)
+and sends it each image and, every 10 frames once initialized, the poses
+and the point cloud.
+
 The oracle hook: ``slam.oracle = fn(slam, es) -> (target, weight)``,
 numpy [E, 2] for the host ``EdgeSet`` es, replaces the network's
 prediction in every round (the sliding-window BA then runs on them, and
@@ -48,6 +56,7 @@ non-steady branch, as in the JAX tracker.
 
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import Callable, Dict, Optional, Tuple
 
@@ -95,17 +104,23 @@ class DPVO:
     they come from a CPU ``torch.Generator`` seeded with ``seed``, so the
     draws do not depend on the device. ``detect``: classic loop closure's
     keypoint detector (``slam/retrieval.OrbRetrieval``), OpenCV's ORB when
-    None.
+    None. ``network``: an ``.npz`` path, a flat flax dict, an export
+    directory (``deploy/export.py``), or None for random weights.
     """
 
     def __init__(self, cfg: Config, network=None, ht: int = 480, wd: int = 640, device=None,
-                 seed: int = 0, draws: Optional[Draws] = None, detect: Optional[Detect] = None):
+                 seed: int = 0, draws: Optional[Draws] = None, detect: Optional[Detect] = None,
+                 viz: bool = False):
         if cfg.CENTROID_SEL_STRAT != "RANDOM":
             raise NotImplementedError(f"CENTROID_SEL_STRAT={cfg.CENTROID_SEL_STRAT} is not "
                                       "ported yet (RANDOM only)")
         self.cfg = cfg
         self.ht, self.wd = ht, wd
         self.device = resolve_device(device)
+        exported = None
+        if isinstance(network, str) and os.path.isdir(network):
+            exported = _load_export_dir(network, cfg, ht, wd, self.device)
+            network = os.path.join(network, "params.npz")
         if self.device.type == "cuda" and 6 * cfg.W_OPT_MAX > SPD_MAX_N:
             raise ValueError(f"DPVO: the card's pose solve takes 6 * W_OPT_MAX <= {SPD_MAX_N} "
                              f"unknowns (csrc/spd_solve.cu), got W_OPT_MAX {cfg.W_OPT_MAX}")
@@ -115,7 +130,7 @@ class DPVO:
             torch.backends.cuda.matmul.allow_tf32 = False
         fdt = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
         self.nets = load_networks(cfg, network, seed).to(self.device, fdt).eval()
-        self.steps = StepFunctions(cfg, self.nets, self.device)
+        self.steps = StepFunctions(cfg, self.nets, self.device, exported=exported)
         self.state = make_state(cfg, ht, wd, self.device)
         self.topo = Topology(cfg)
         self._gen = torch.Generator().manual_seed(seed)
@@ -137,6 +152,11 @@ class DPVO:
         # classic loop closure; without OpenCV and a detector this raises
         self.long_term_lc = (LongTermLoopClosure(cfg, self, detect=detect)
                              if cfg.CLASSIC_LOOP_CLOSURE else None)
+        self.viewer = None
+        if viz:
+            from dpvo_tpu_torch.apps.viewer import Viewer
+
+            self.viewer = Viewer()
 
     @property
     def n(self) -> int:
@@ -151,6 +171,16 @@ class DPVO:
         applied first."""
         self._drain()
         return self.state.poses[: self.n].cpu().numpy()
+
+    @torch.no_grad()
+    def point_cloud(self) -> Tuple[np.ndarray, np.ndarray]:
+        """World points [m, 3] f32 and their BGR colours [m, 3] uint8 of the
+        live patches (PLY / COLMAP export, the viewer), the pending keyframe
+        decisions applied first."""
+        self._drain()
+        pts = self.steps._point_cloud(self.state, self.m).cpu().numpy()
+        clr = self.state.colors.reshape(-1, 3)[: self.m].cpu().numpy()
+        return pts, clr
 
     def _random_draws(self, frame: int):
         M = self.cfg.PATCHES_PER_FRAME
@@ -176,6 +206,11 @@ class DPVO:
         # retire frames beyond the pipeline depth: apply their decisions
         while len(self._inflights) >= max(cfg.PIPELINE_DEPTH, 1):
             self._drain_one()
+        if self.viewer is not None:
+            self.viewer.update_image(image)
+            if (self.counter + 1) % 10 == 0 and self.is_initialized:
+                pts, clr = self.point_cloud()
+                self.viewer.update_state(self.poses_np(), pts, clr)
         if self.long_term_lc is not None:
             self.long_term_lc(image, self.n)
         run_gba = cfg.LOOP_CLOSURE and (
@@ -198,8 +233,8 @@ class DPVO:
         image_t = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
         centroids = torch.as_tensor(centroids, dtype=torch.float32).to(self.device)
         depth_init = torch.as_tensor(depth_init, dtype=torch.float32)
-        fmap, gmap, imap, patches = self.steps._patchify(image_t, centroids)
-        self.steps._ingest(self.state, self.n, fmap, gmap, imap, patches, intrinsics, fac,
+        fmap, gmap, imap, patches, clr = self.steps._patchify(image_t, centroids)
+        self.steps._ingest(self.state, self.n, fmap, gmap, imap, patches, clr, intrinsics, fac,
                            self.is_initialized, self.n > 1, depth_init)
 
         if self.n > 0 and not self.is_initialized:
@@ -468,4 +503,29 @@ class DPVO:
         traj = {self.tstamps[i]: poses_kf[i] for i in range(self.n)}
         poses = np.stack([self.get_pose(t, traj) for t in range(self.counter)])
         poses = se3.inv(torch.as_tensor(poses)).numpy()
+        if self.viewer is not None:
+            self.viewer.join()
         return poses, np.asarray(self.tlist, np.float64)
+
+
+def _load_export_dir(path: str, cfg: Config, ht: int, wd: int, device):
+    """The exported network of directory path (``deploy/export.py``),
+    checked against the tracker's geometry, configuration and device."""
+    if not os.path.exists(os.path.join(path, "patchify.pt2")):
+        if os.path.exists(os.path.join(path, "patchify.shlo")):
+            raise ValueError(f"{path} holds the JAX package's StableHLO artifacts, which the "
+                             "port cannot run; export the network with python -m "
+                             "dpvo_tpu_torch.apps.export_network")
+        raise ValueError(f"{path} is a directory without an exported network (patchify.pt2)")
+    from dpvo_tpu_torch.deploy.export import load_exported, read_meta
+
+    me = read_meta(path)
+    want = {"ht": ht, "wd": wd, "e_max": cfg.E_MAX, "mixed_precision": bool(cfg.MIXED_PRECISION),
+            "m_opt_max": cfg.M_OPT_MAX, "patches_per_frame": cfg.PATCHES_PER_FRAME,
+            "dim": cfg.DIM, "fdim": cfg.FDIM, "device": device.type}
+    mism = {k: me.get(k) for k, v in want.items() if me.get(k) != v}
+    if mism:
+        raise ValueError(f"exported network {path} was exported for {mism}, incompatible with "
+                         f"this tracker's { {k: want[k] for k in mism} }")
+    print(f"running the exported network of {path}")
+    return load_exported(path)

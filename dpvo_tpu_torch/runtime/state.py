@@ -21,6 +21,7 @@ class VOState:
     patches: torch.Tensor      # [N*M, 3, P, P]; depth plane = ingest-time init
     dvec: torch.Tensor         # [N*M] live inverse depth, one per patch
     intrinsics: torch.Tensor   # [N, 4] (fx, fy, cx, cy) at 1/4 res
+    colors: torch.Tensor       # [N, M, 3] uint8 patch colours, BGR (viewer/export)
     imap: torch.Tensor         # [pmem*M, DIM]        patch context
     gmap: torch.Tensor         # [pmem*M, FDIM, P, P] patch matching features
     fmap1: torch.Tensor        # [mem, h, w, FDIM]    frame features, 1x (NHWC)
@@ -49,6 +50,7 @@ def make_state(cfg: Config, ht: int, wd: int, device) -> VOState:
         patches=z(N * M, 3, P, P),
         dvec=z(N * M),
         intrinsics=z(N, 4),
+        colors=z(N, M, 3, dtype=torch.uint8),
         imap=z(pmem * M, cfg.DIM, dtype=fdt),
         gmap=z(pmem * M, cfg.FDIM, P, P, dtype=fdt),
         fmap1=z(cfg.MEM, h, w, cfg.FDIM, dtype=fdt),

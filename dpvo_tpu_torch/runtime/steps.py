@@ -5,6 +5,10 @@ PyTorch runs eagerly, so the JAX package's fused per-frame program, its
 capacity buckets and its packed uint8 frame payload have no counterpart:
 the host orchestrator (``runtime/dpvo.py``) calls these steps in order
 on the live edge set. The steps update ``VOState`` buffers in place.
+
+Given an ``ExportedVONet`` (``deploy/export.py``), patchify and the update
+operator run its ``torch.export`` programs instead of the modules, as
+the JAX steps run their StableHLO artifacts.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from dpvo_tpu_torch.ba import gba_sparse
 from dpvo_tpu_torch.ba import solver as ba_solver
@@ -27,6 +32,8 @@ from dpvo_tpu_torch.runtime.state import VOState
 from dpvo_tpu_torch.runtime.topology import EdgeSet
 
 PAIR_MAX = 1024  # distinct (ii, jj) pairs in the active window (SoftAgg size / 2)
+
+_TWO_OVER_255 = float(np.float32(2.0 / 255.0))
 
 _EDGE_INDEX = ("ii", "jj", "kk", "ix", "jx", "dense2patch")
 # read by the CUDA kernels as int32
@@ -63,12 +70,47 @@ def median(x):
     return (s[n // 2 - 1] + s[n // 2]) / 2
 
 
+class PatchifyStep(nn.Module):
+    """The tracker's patchify on tensors alone (the module that
+    ``deploy/export.py`` exports): image [H,W,3] uint8, centroids [M,2] ->
+    (fmap [h,w,fdim], gmap [M,fdim,P,P], imap [M,dim], patches [M,3,P,P],
+    clr [M,3] f32). The features in the configuration's dtype; the colours
+    in BGR order and scaled to [0, 255] as the JAX step makes them
+    (``dpvo_tpu/runtime/steps.py:_patchify``)."""
+
+    def __init__(self, patchifier, fdt):
+        super().__init__()
+        self.patchifier = patchifier
+        self.fdt = fdt
+
+    def forward(self, image_u8, centroids):
+        img = 2.0 * (image_u8.to(torch.float32) / 255.0) - 0.5
+        fmap, gmap, imap, patches, _ = self.patchifier(img[None].to(self.fdt), centroids[None])
+        # the colours: the centroids are integers, so JAX's bilinear sample
+        # at 4 * (c + 0.5) reads the one pixel (4y + 2, 4x + 2). Its value
+        # normalized as XLA computes it for the JAX tracker: u times
+        # f32(2/255) minus 0.5 rounded once (a fused multiply-add, exact in
+        # f64), whose roundings the truncation to uint8 tells apart; rounded
+        # to the configuration's dtype as the encoders' input is
+        c = (4 * centroids + 2).long()
+        u = image_u8[c[:, 1], c[:, 0]]
+        clr = (u.to(torch.float64) * _TWO_OVER_255 - 0.5).to(torch.float32)
+        clr = clr.to(self.fdt).to(torch.float32)
+        clr = (clr.flip(-1) + 0.5) * (255.0 / 2)
+        return fmap[0].to(self.fdt), gmap.to(self.fdt), imap.to(self.fdt), patches, clr
+
+
 class StepFunctions:
-    def __init__(self, cfg: Config, nets, device):
+    def __init__(self, cfg: Config, nets, device, exported=None):
         self.cfg = cfg
         self.nets = nets
         self.device = device
         self.fdt = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
+        self.exported = exported
+        if exported is not None:
+            self.patchify = exported.patchify
+        elif nets is not None:
+            self.patchify = PatchifyStep(nets.patchifier, self.fdt)
         self.pmem = cfg.MAX_EDGE_AGE if cfg.LOOP_CLOSURE else cfg.PMEM
         if cfg.CORR_IMPL not in CORR_IMPLS:
             raise ValueError(f"CORR_IMPL={cfg.CORR_IMPL!r}: expected one of {CORR_IMPLS}")
@@ -78,22 +120,22 @@ class StepFunctions:
 
     def _patchify(self, image_u8, centroids):
         """image_u8 [H,W,3] uint8, centroids [M,2] -> (fmap [h,w,fdim],
-        gmap [M,fdim,P,P], imap [M,dim], patches [M,3,P,P]). Patch colours
-        are left out until the export path is ported."""
-        img = 2.0 * (image_u8.to(torch.float32) / 255.0) - 0.5
-        img = img[None].to(self.fdt)
-        fmap, gmap, imap, patches, _ = self.nets.patchifier(img, centroids[None])
-        return fmap[0].to(self.fdt), gmap.to(self.fdt), imap.to(self.fdt), patches
+        gmap [M,fdim,P,P], imap [M,dim], patches [M,3,P,P], clr [M,3]):
+        ``PatchifyStep``, or the exported program of it."""
+        return self.patchify(image_u8, centroids)
 
-    def _ingest(self, state: VOState, n: int, fmap, gmap_p, imap_p, patches, intrinsics,
+    def _ingest(self, state: VOState, n: int, fmap, gmap_p, imap_p, patches, clr, intrinsics,
                 motion_fac: float, is_initialized: bool, do_motion: bool, depth_init):
         """Write one frame into row n of the buffers, with the
         damped-linear motion model and the depth init (random before
-        initialization, else the median of the last three frames)."""
+        initialization, else the median of the last three frames). The
+        colours clr [M,3] are cast to uint8 by truncation, as JAX's
+        ``astype`` does."""
         cfg = self.cfg
         M = cfg.PATCHES_PER_FRAME
         state.intrinsics[n] = torch.as_tensor(intrinsics, dtype=torch.float32,
                                               device=self.device) / cfg.RES
+        state.colors[n] = clr.to(torch.uint8)
 
         P1 = state.poses[max(n - 1, 0)]
         P2 = state.poses[max(n - 2, 0)]
@@ -143,10 +185,15 @@ class StepFunctions:
         corr = self._corr(state, coords.to(torch.float32).contiguous(), es)
         corr = corr.reshape(E, -1).to(self.fdt)
         ctx = state.imap[es["ii1"]]
-        net, delta, weight = self.nets.update(
-            net, ctx, corr, es["ix"], es["jx"], es["mask_ix"], es["mask_jx"], es["kk_seg"],
-            es["ij_seg"], es["valid"], num_segments=es["dense2patch"].shape[0],
-            num_ij_segments=2 * PAIR_MAX, kk_order=es["kd_order"], ij_order=es["ij_order"])
+        args = (net, ctx, corr, es["ix"], es["jx"], es["mask_ix"], es["mask_jx"], es["kk_seg"],
+                es["ij_seg"], es["valid"])
+        if self.exported is not None:
+            net, delta, weight = self.exported.update(
+                *args, es["kd_order"], es["ij_order"], num_segments=es["dense2patch"].shape[0])
+        else:
+            net, delta, weight = self.nets.update(
+                *args, num_segments=es["dense2patch"].shape[0], num_ij_segments=2 * PAIR_MAX,
+                kk_order=es["kd_order"], ij_order=es["ij_order"])
         c = cfg.P // 2
         target = coords[:, c, c, :].to(torch.float32) + delta
         return net, target, weight, delta
@@ -251,8 +298,8 @@ class StepFunctions:
         k+1..n_after; circular slots f % period take (f+1) % period for
         f = k..n_after (a gather from the buffer before the move)."""
         M = self.cfg.PATCHES_PER_FRAME
-        for buf, rows in ((state.poses, 1), (state.intrinsics, 1), (state.patches, M),
-                          (state.dvec, M)):
+        for buf, rows in ((state.poses, 1), (state.intrinsics, 1), (state.colors, 1),
+                          (state.patches, M), (state.dvec, M)):
             buf[k * rows:n_after * rows] = buf[(k + 1) * rows:(n_after + 1) * rows].clone()
         f = np.arange(k, n_after + 1)
         for buf, period, rows in ((state.imap, self.pmem, M), (state.gmap, self.pmem, M),
@@ -269,6 +316,20 @@ class StepFunctions:
         M = self.cfg.PATCHES_PER_FRAME
         state.poses[:m] = poses_new[:m]
         state.dvec[:m * M] = state.dvec[:m * M] / scales[:m].repeat_interleave(M)
+
+    # ---------------- outputs ----------------
+
+    def _point_cloud(self, state: VOState, m: int):
+        """World points [m, 3] at the centre pixels of the m live patches
+        (viewer, PLY and COLMAP export), dehomogenised as the JAX step does
+        (``dpvo_tpu/runtime/steps.py:_point_cloud``)."""
+        cfg = self.cfg
+        ix = torch.arange(m, device=self.device) // cfg.PATCHES_PER_FRAME
+        X = pops.point_cloud(state.poses, state.patches[:m], state.intrinsics, ix,
+                             depth=state.dvec[:m])
+        c = cfg.P // 2
+        w = X[:, c, c, 3:]
+        return X[:, c, c, :3] / torch.clamp(w.abs(), min=1e-8) * torch.sign(w)
 
     # ---------------- global BA + gauge ----------------
 

@@ -557,7 +557,7 @@ def test_corr_bwd_invalid_and_offmap_edges_add_nothing(dev):
 
 
 def test_segsum_backward_on_the_card_matches_the_cpu(dev):
-    """SegmentSum's gradient on the card (the gather, in the payload's
+    """The segment-sum op's gradient on the card (the gather, in the payload's
     dtype; zero for dropped ids) equals the CPU's, for BA's f32 payload and
     SoftAgg's bf16 one."""
     from dpvo_tpu_torch.ba.segsum import segment_sum
@@ -657,3 +657,65 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     bad = {k: (float((gg[k] - near[k]).norm()), float(near[k].norm())) for k in near
            if (gg[k] - near[k]).norm() > 5e-3 * near[k].norm() + 1e-5 * whole}
     assert not bad, (dist, bad)
+
+
+def test_segment_sum_op_launches_the_kernel(dev):
+    """The op dpvo_tpu_torch::segment_sum on CUDA tensors runs the kernel:
+    the kernel wrapper's bits, one launch counted per call, and the plain
+    version's bits on the CPU; with requires_grad it still launches it."""
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.ba.segsum import _segment_sum_kernel, segment_sum_plain
+
+    g = torch.Generator().manual_seed(1)
+    for dtype, K in ((torch.float32, 98), (torch.bfloat16, 768)):
+        x = torch.randn(5000, K, generator=g).to(dtype)
+        kd = torch.randint(0, 400, (5000,), generator=g, dtype=torch.int32)
+        order = torch.argsort(kd, stable=True).to(torch.int32)
+        name = "segsum_bf16" if dtype == torch.bfloat16 else "segsum"
+        args = (x.to(dev), kd.to(dev), order.to(dev), 380)
+        before = kernels.LAUNCHES[name]
+        got = torch.ops.dpvo_tpu_torch.segment_sum(*args)
+        via_grad = torch.ops.dpvo_tpu_torch.segment_sum(args[0].clone().requires_grad_(),
+                                                        *args[1:])
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 2
+        assert torch.equal(got, _segment_sum_kernel(*args))
+        assert torch.equal(got.cpu(), segment_sum_plain(x, kd, 380))
+        assert torch.equal(via_grad.detach(), got)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_exported_update_launches_segsum_on_the_card(dev, tmp_path, mixed):
+    """update.pt2 exported on the card keeps the segment-sum op: a call
+    launches the kernel (three sums: SoftAgg by patch on the small branch,
+    by frame pair on the large one), at an edge count other than the traced
+    one, and gives the eager module's result (bit for bit in f32; bf16
+    within two bf16 ulps of the largest output, since the exported graph
+    may pick other kernels for its matmuls)."""
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.deploy.export import (UpdateStep, export_network, load_exported,
+                                              update_inputs)
+    from dpvo_tpu_torch.runtime.steps import PAIR_MAX
+    from dpvo_tpu_torch.runtime.weights import load_networks
+
+    cfg = Config(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, E_MAX=1024, M_OPT_MAX=128, DIM=64,
+                 FDIM=32, MIXED_PRECISION=mixed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nets = load_networks(cfg, None, seed=0)
+    net = load_exported(export_network(nets, cfg, 48, 64, str(tmp_path), device=dev))
+    fdt = torch.bfloat16 if mixed else torch.float32
+    eager = UpdateStep(nets.to(dev, fdt).update, cfg.M_OPT_MAX, 2 * PAIR_MAX).eval()
+    x = update_inputs(cfg, 300, dev, torch.Generator().manual_seed(2))
+    before = kernels.LAUNCHES["segsum"] + kernels.LAUNCHES["segsum_bf16"]
+    with torch.no_grad():
+        got = net.update(*x)
+        want = eager(*x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["segsum"] + kernels.LAUNCHES["segsum_bf16"] - before == 6
+    for a, b in zip(got, want):
+        if mixed:
+            assert (a.float() - b.float()).abs().max() <= 2 ** -6 * b.float().abs().max()
+        else:
+            assert torch.equal(a, b)

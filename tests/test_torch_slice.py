@@ -1,7 +1,8 @@
 """Port parity for the whole slice: the JAX DPVO against the port's
 DPVO(device="cpu") on the tiny configuration of test_tracking_e2e.py
 (tiny_synth.npz, f32, 48x64, 24 frames), with the JAX run's own random
-draws injected into the port."""
+draws injected into the port: initialization, keyframes, trajectory, the
+patch colours and the point cloud."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,3 +122,32 @@ def test_small_parity_draws_are_well_conditioned(monkeypatch):
     alt = chip_smoke.free_run(tracker("cpu"), frames, K)
     assert ref[0] is not None and len(ref[1]) >= 6  # initialized, culled and kept keyframes
     chip_smoke.check_free_runs(ref, alt, who="f64 correlation")
+
+
+def test_colors_match_jax(runs):
+    """The patch colours of the live keyframes after the runs, whose
+    keyframe culls agree (test_same_keyframes): uint8 BGR, exactly the JAX
+    tracker's in f32."""
+    jslam, tslam = runs["j"][0], runs["t"][0]
+    assert tslam.n == jslam.n and len(jslam.delta) > 0
+    want = np.asarray(jslam.state.colors[: jslam.n])
+    got = tslam.state.colors[: tslam.n].numpy()
+    assert got.dtype == np.uint8 and want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    pts, clr = tslam.point_cloud()
+    np.testing.assert_array_equal(clr, want.reshape(-1, 3)[: tslam.m])
+
+
+def test_point_cloud_matches_jax(runs):
+    """point_cloud() of the port's tracker given the JAX tracker's final
+    poses, patches, inverse depths and intrinsics: the JAX tracker's points,
+    within 1e-4 of each point's magnitude (f32). It overwrites the port's
+    state, so it stays the last test of this file."""
+    jslam, tslam = runs["j"][0], runs["t"][0]
+    for f in ("poses", "patches", "dvec", "intrinsics"):
+        getattr(tslam.state, f).copy_(torch.as_tensor(np.array(getattr(jslam.state, f))))
+    got, _ = tslam.point_cloud()
+    want, _ = jslam.point_cloud()
+    assert got.shape == want.shape == (tslam.m, 3) and np.isfinite(got).all()
+    scale = np.maximum(np.abs(want).max(axis=1, keepdims=True), 1.0)
+    assert (np.abs(got - want) <= 1e-4 * scale).all()

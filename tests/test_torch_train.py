@@ -20,7 +20,7 @@ from dpvo_tpu.models.vonet import build_schedule as j_build_schedule
 from dpvo_tpu.ops.corr import corr_features_xla
 from dpvo_tpu.train import loss as j_loss
 from dpvo_tpu.train.step import make_optimizer as j_make_optimizer
-from dpvo_tpu_torch.ba.segsum import SegmentSum, segment_sum, segment_sum_backward
+from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_backward
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.data import augmentation as t_aug
 from dpvo_tpu_torch.models.vonet import build_schedule
@@ -105,9 +105,9 @@ def test_corr_features_train_grad_matches_autograd_of_plain(spread):
 
 
 def test_segment_sum_gradcheck():
-    """SegmentSum's gradient by finite differences (f64 payload on the
-    plain path; ids past Md dropped), and its backward function, which the
-    card path shares, is the gather of the output's gradient."""
+    """The segment-sum op's gradient by finite differences (f64 payload on
+    the plain path; ids past Md dropped), and its backward function, which
+    the card path shares, is the gather of the output's gradient."""
     rng = np.random.default_rng(0)
     E, K, Md = 40, 5, 7
     kd = torch.as_tensor(rng.integers(0, Md + 2, E))
@@ -120,7 +120,7 @@ def test_segment_sum_gradcheck():
     assert torch.equal(back[keep], g[kd[keep]].to(torch.bfloat16))
     assert not back[~keep].any()
     xf = x.detach().float().requires_grad_()
-    (gx,) = torch.autograd.grad(SegmentSum.apply(xf, kd, None, Md), xf, g)
+    (gx,) = torch.autograd.grad(segment_sum(xf, kd, None, Md), xf, g)
     assert torch.equal(gx, segment_sum_backward(g, kd, Md, torch.float32))
 
 
