@@ -112,6 +112,21 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    initialized, each ATE finite), and the protocol's evaluate_sequences
    with 2 trials (AVG and AUC equal to their recomputation from the
    trials' ATEs).
+10. GRADIENT_BIAS, the parallel layer and Timer (phase_gradient_bias_parallel):
+   phase 3's path with CENTROID_SEL_STRAT GRADIENT_BIAS (initialized, culled,
+   finite poses, corr / segsum / SPD launched, the card's centroid selection
+   torch.equal to the CPU's from the same bf16 image and candidates on the
+   first 5 frames; ATE beside phase 3's and a ms/frame reading printed, the
+   frame loop timed by Timer, a frame's patchify under each strategy timed
+   in turn); that configuration exported and tracked on 10
+   frames, bit for bit the eager tracker; a world-size-1 NCCL group with a
+   (1, 1) mesh: phase 6's stream through DPVO(mesh=), its global-BA rounds
+   through dist_gba (segsum launched), poses bit for bit phase 6's, the last
+   round through gba and dist_gba timed in turn; dist_ba_delta
+   at the main path's last BA, bit for bit ba_delta with the SPD kernel
+   launched; one step of apps/train.py --mesh 1,1 at phase 8's shape (finite
+   loss; its parameters' difference from a step without a mesh printed). The
+   group is destroyed at the end.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs a CUDA device and
@@ -153,6 +168,28 @@ def cuda_ms(fn, reps, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def alternating_ms(fns, reps, warmup=2):
+    """The median event-pair time of each of fns, run in turn reps times,
+    so that a drift of the card's or the host's speed falls on each alike."""
+    import torch
+
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+    return [float(np.median(ts)) for ts in times]
 
 
 # Profiles device_ms takes before it gives up. The drops grow with the
@@ -1000,15 +1037,16 @@ def phase_main_path(torch, kernels):
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     steady = step_ms[warm:]
     gt = se3.inv(torch.as_tensor(scene.poses[:n_frames])).numpy()
+    ate = ate_rmse(poses[:, :3], gt[:, :3])
     # a smoke reading over a 20-frame window, not the port's frame rate
     print(f"main path (smoke reading): {1e3 / np.mean(steady):.3f} frames/s over frames {warm}-"
           f"{n_frames - n_prof - 1}, "
           f"median step {np.median(steady):.3f} ms, max {np.max(steady):.3f} ms, "
-          f"ATE {ate_rmse(poses[:, :3], gt[:, :3]):.4f} (path length "
+          f"ATE {ate:.4f} (path length "
           f"{np.linalg.norm(np.diff(gt[:, :3], axis=0), axis=1).sum():.3f}), peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     _print_profile(prof, prof_wall_ms, n_prof)
-    return launches
+    return launches, ate
 
 
 # the kernels each CORR_IMPL's correlation runs, and those every run of the
@@ -1607,7 +1645,8 @@ def phase_loop_closure(torch, kernels):
     stats = dict(ms=cuda_ms(solve, 5), device_ms=device_ms(solve, 5, mixed=True), KP=big["KP"])
     print("loop closure: the largest round's solve (KP {KP}) timed alone: {ms:.3f} ms (event "
           "pair), device time {device_ms:.3f} ms".format(**stats))
-    return gba_segsum, dict(scene=scene, frames=frames, gt=gt, off_ate=off["ate"])
+    return gba_segsum, dict(scene=scene, frames=frames, gt=gt, off_ate=off["ate"],
+                            lc_poses=on["poses"], lc_rounds=on["rounds"])
 
 
 # Phase 7's retrieval threshold. The retrieval scores a frame pair by the mean
@@ -2092,6 +2131,286 @@ def phase_export_apps(torch, kernels, smi):
     return launches[0]
 
 
+# Phase 10: GRADIENT_BIAS, the parallel layer and Timer. The exported
+# GRADIENT_BIAS tracker runs this many of phase 3's frames; the centroid
+# selection is held card against CPU on the first GB_SELECT_FRAMES frames.
+GB_EXPORT_FRAMES = 10
+GB_SELECT_FRAMES = 5
+# alternating runs that price the selection (a patchify under each strategy)
+# and the one-rank mesh (a global-BA round through gba and dist_gba)
+COST_REPS = 20
+
+
+def _launched(kernels):
+    return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+
+def phase_gradient_bias_parallel(torch, kernels, smi, main_ate, stream):
+    """Phase 10 (GRADIENT_BIAS, the parallel layer, Timer), each item gated
+    unless printed only:
+    1. config/default.yaml with CENTROID_SEL_STRAT GRADIENT_BIAS, phase 3's
+       weights and 40-frame scene: initialized, culled, finite poses; corr,
+       segsum and SPD launched; on the first GB_SELECT_FRAMES frames the
+       card's selected centroids equal the CPU selection from the same bf16
+       image and candidates (torch.equal). The ATE beside phase 3's RANDOM
+       ATE and a ms/frame smoke reading are printed; Timer times the frame
+       loop and its all_times are printed; the patchify of one frame under
+       RANDOM and under GRADIENT_BIAS, COST_REPS times each in turn, prices
+       the selection (printed).
+    2. That configuration exported (export_network.main) and tracked on
+       GB_EXPORT_FRAMES frames: poses bit for bit the eager tracker's.
+    3. A world-size-1 NCCL group and make_mesh(1, 1): phase 6's slam.yaml
+       stream through DPVO(mesh=): global-BA rounds through dist_gba that
+       launch segsum, poses bit for bit phase 6's run without a mesh. The
+       last round's global BA through gba and through dist_gba, COST_REPS
+       times each in turn, prices the one-rank mesh (printed).
+    4. dist_ba_delta at item 1's last sliding-window BA (the main path's
+       shape): bit for bit ba_delta, the SPD kernel launched.
+    5. One training step through apps/train.py --mesh 1,1 at phase 8's
+       shape: a finite loss; its parameters' difference from a step without
+       a mesh on the same clip and draws printed.
+    Returns the launches of each item."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dpvo_tpu_torch import DPVO, load_config
+    from dpvo_tpu_torch.apps import export_network
+    from dpvo_tpu_torch.apps import train as train_app
+    from dpvo_tpu_torch.ba import gba_sparse
+    from dpvo_tpu_torch.ba import solver as ba_solver
+    from dpvo_tpu_torch.lie import se3
+    from dpvo_tpu_torch.models.patchifier import gradient_bias_centroids
+    from dpvo_tpu_torch.parallel import dist_ba_delta, make_mesh
+    from dpvo_tpu_torch.parallel.multihost import init_distributed
+    from dpvo_tpu_torch.runtime.steps import PatchifyStep
+    from dpvo_tpu_torch.utils import Timer
+    from dpvo_tpu_torch.utils import timer as timer_mod
+
+    dev = torch.device("cuda")
+    ht, wd, n_frames = 480, 640, 40
+    cfg_path = os.path.join(ROOT, "config", "default.yaml")
+    weights = os.path.join(ROOT, "weights", "vonet_synth.npz")
+    gb = {"CENTROID_SEL_STRAT": "GRADIENT_BIAS"}
+    cfg = load_config(cfg_path, overrides=gb)
+    M, c = cfg.PATCHES_PER_FRAME, cfg.P // 2
+    scene, frames = render_main_scene(n_frames)
+    gt = se3.inv(torch.as_tensor(scene.poses[:n_frames])).numpy()
+    launches = {}
+
+    # ---- 1. GRADIENT_BIAS at full width ----
+    slam = DPVO(cfg, weights, ht, wd)
+    selected, last_ba = [], {}
+    patchify = slam.steps._patchify
+
+    def recorded(image_u8, draws):
+        out = patchify(image_u8, draws)
+        if len(selected) < GB_SELECT_FRAMES:
+            selected.append((image_u8.cpu(), draws.cpu(), out[3][:, :2, c, c].cpu()))
+        return out
+
+    real_ba = ba_solver.ba
+
+    def keep_ba(*args, **kw):  # the last sliding-window BA's inputs, for item 4
+        last_ba.update(args=tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                       kw=dict(kw))
+        return real_ba(*args, **kw)
+
+    slam.steps._patchify = recorded
+    ba_solver.ba = keep_ba
+    timer_mod.all_times.clear()
+    kernels.reset_launches()
+    step_ms = []
+    try:
+        with Timer("phase 10 GRADIENT_BIAS frame loop", sync=dev):
+            for t in range(n_frames):
+                t0 = time.perf_counter()
+                slam(t, frames[t], scene.intrinsics.copy())
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ba_solver.ba = real_ba
+    poses, _ = slam.terminate()
+    torch.cuda.synchronize()
+    launches["gradient_bias"] = _launched(kernels)
+    same_sel = []
+    for image_u8, draws, card in selected:
+        img = (2.0 * (image_u8.to(torch.float32) / 255.0) - 0.5).to(torch.bfloat16)[None]
+        same_sel.append(torch.equal(card, gradient_bias_centroids(img, draws[None], M)[0]))
+    ate = ate_rmse(poses[:, :3], gt[:, :3])
+    print(f"phase 10, GRADIENT_BIAS: initialized {slam.is_initialized}, keyframes {slam.n}, "
+          f"culled {len(slam.delta)}; card selection == CPU selection on frames 0-"
+          f"{len(selected) - 1}: {same_sel}; ATE {ate:.4f} (RANDOM, phase 3: {main_ate:.4f}; no "
+          f"accuracy claim); smoke reading: median frame {np.median(step_ms[15:]):.3f} ms over "
+          f"frames 15-{n_frames - 1}; launches {launches['gradient_bias']}")
+    print(f"phase 10, Timer all_times (ms): "
+          f"{ {k: [round(x, 3) for x in v] for k, v in timer_mod.all_times.items()} }")
+    missing = [k for k in IMPL_KERNELS["xla"] + PATH_KERNELS
+               if not launches["gradient_bias"].get(k)]
+    if (not slam.is_initialized or not slam.delta or not np.isfinite(poses).all()
+            or poses.shape != (n_frames, 7) or missing or len(same_sel) != GB_SELECT_FRAMES
+            or not all(same_sel)):
+        raise AssertionError(f"GRADIENT_BIAS: not initialized or culled, non-finite poses, "
+                             f"kernels {missing} not launched, or a card selection that is not "
+                             f"the CPU's ({same_sel})")
+    # the selection's cost: the tracker's patchify of one frame under each
+    # strategy, in turn (RANDOM on the first M of the 3M candidates)
+    pf_gb = slam.steps.patchify
+    pf_rnd = PatchifyStep(pf_gb.patchifier, pf_gb.fdt, M, "RANDOM")
+    image_u8, cand = selected[-1][0].to(dev), selected[-1][1].to(dev)
+    with torch.no_grad():
+        pf_ms = alternating_ms([lambda: pf_rnd(image_u8, cand[:M]),
+                                lambda: pf_gb(image_u8, cand)], COST_REPS)
+    print(f"phase 10, GRADIENT_BIAS cost: patchify of a 480x640 frame, {COST_REPS} runs of each "
+          f"in turn (median event pair): RANDOM {pf_ms[0]:.4f} ms, GRADIENT_BIAS "
+          f"{pf_ms[1]:.4f} ms, difference {pf_ms[1] - pf_ms[0]:.4f} ms")
+    del slam, pf_gb, pf_rnd
+    gc.collect()
+
+    # ---- 2. the GRADIENT_BIAS export against the eager tracker ----
+    rng = np.random.default_rng(1)
+    h, w = ht // cfg.RES, wd // cfg.RES
+    draws = [(np.stack([rng.integers(1, w - 1, 3 * M), rng.integers(1, h - 1, 3 * M)], -1)
+              .astype(np.float32), rng.uniform(size=M).astype(np.float32))
+             for _ in range(GB_EXPORT_FRAMES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gb")
+        export_network.main(["--network", weights, "--config", cfg_path, "--outdir", out,
+                             "--ht", str(ht), "--wd", str(wd), "--opts",
+                             "CENTROID_SEL_STRAT", "GRADIENT_BIAS"])
+        with open(os.path.join(out, "meta.json")) as f:
+            meta = json.load(f)
+        runs = []
+        for network in (weights, out):
+            s2 = DPVO(cfg, network, ht, wd, draws=lambda f: draws[f])
+            for t in range(GB_EXPORT_FRAMES):
+                s2(t, frames[t], scene.intrinsics.copy())
+            runs.append(s2.terminate()[0])
+            del s2
+            gc.collect()
+    diff = _pose_diff(runs[1], runs[0])
+    print(f"phase 10, GRADIENT_BIAS export: meta centroid_sel_strat "
+          f"{meta['centroid_sel_strat']}; exported against eager tracker over "
+          f"{GB_EXPORT_FRAMES} frames: largest pose difference {diff:.6g}")
+    if meta["centroid_sel_strat"] != "GRADIENT_BIAS" or diff != 0.0:
+        raise AssertionError("GRADIENT_BIAS export: the strategy is not recorded or the "
+                             "exported tracker is not the eager one bit for bit")
+
+    # ---- 3. the mesh tracker on a world-size-1 NCCL group ----
+    store = tempfile.mkdtemp()  # the group's FileStore, removed with the group
+    init_distributed(f"file://{os.path.join(store, 'store')}", 1, 0, backend="nccl")
+    mesh = make_mesh(1, 1)
+    print(f"phase 10: process group {dist.get_backend()}, world size {dist.get_world_size()}, "
+          f"mesh {mesh}")
+    lc_cfg = load_config(os.path.join(ROOT, "config", "slam.yaml"),
+                         overrides={"LOOP_CLOSURE": True})
+    slam = DPVO(lc_cfg, weights, ht, wd, mesh=mesh)
+    rounds, dist_calls, real_dist, last_gba = [], [], gba_sparse.dist_gba, {}
+    real_round = slam.steps._global_ba
+
+    def counted(*args, **kw):  # segsum launches inside each dist_gba call
+        last_gba.update(args=tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                   for a in args), kw=kw)
+        before = kernels.LAUNCHES["segsum"]
+        out = real_dist(*args, **kw)
+        dist_calls.append(kernels.LAUNCHES["segsum"] - before)
+        return out
+
+    def timed(*args):  # as phase 6 times a round's solve
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        real_round(*args)
+        b.record()
+        b.synchronize()
+        rounds.append(a.elapsed_time(b))
+
+    gba_sparse.dist_gba, slam.steps._global_ba = counted, timed
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for t, image in enumerate(stream["frames"]):
+            slam(t, image, stream["scene"].intrinsics.copy())
+        lc_poses, _ = slam.terminate()
+        torch.cuda.synchronize()
+    finally:
+        gba_sparse.dist_gba = real_dist
+    launches["mesh_tracker"] = dict(_launched(kernels), segsum_gba=sum(dist_calls))
+    same = np.array_equal(lc_poses, stream["lc_poses"])
+    # the mesh's cost: the last round's global BA through gba and through
+    # dist_gba, in turn
+    if last_gba:
+        g_args, g_kw = last_gba["args"], last_gba["kw"]
+        gba_ms = alternating_ms([lambda: gba_sparse.gba(*g_args[1:], **g_kw),
+                                 lambda: real_dist(*g_args, **g_kw)], COST_REPS)
+        print(f"phase 10, mesh cost: the last global-BA round, {COST_REPS} runs of each in turn "
+              f"(median event pair): gba {gba_ms[0]:.4f} ms, dist_gba on a one-rank mesh "
+              f"{gba_ms[1]:.4f} ms, difference {gba_ms[1] - gba_ms[0]:.4f} ms")
+    print(f"phase 10, mesh tracker (world size 1, NCCL): {len(stream['frames'])} frames in "
+          f"{time.perf_counter() - t0:.1f} s, {len(dist_calls)} global-BA rounds through "
+          f"dist_gba, poses bit for bit phase 6's: {same} (largest difference "
+          f"{np.abs(lc_poses - stream['lc_poses']).max():.3g}); round ms (event pair around the "
+          f"solve, as phase 6) {[round(x, 3) for x in rounds]}, phase 6's "
+          f"{[round(r['ms'], 3) for r in stream['lc_rounds']]}; launches "
+          f"{launches['mesh_tracker']}")
+    if not dist_calls or not launches["mesh_tracker"].get("segsum") or not same:
+        raise AssertionError("mesh tracker: no global-BA round through dist_gba, no segment sum, "
+                             "or poses that are not phase 6's")
+    del slam
+    gc.collect()
+
+    # ---- 4. dist_ba_delta at the main path's BA shape ----
+    (poses0, ctr, intr, target, weight, valid, ii, jj, kd, t0_, nfree, bounds, lmbda) = \
+        last_ba["args"]
+    kw = last_ba["kw"]
+    bkw = dict(W=kw["W"], Md=kw["Md"], ep=kw["ep"], lm=kw["lm"], res_clip=kw["res_clip"])
+    want = ba_solver.ba_delta(ba_solver.BAProblem(poses0, ctr, intr, target, weight, valid, ii, jj,
+                                                  kd, t0_, nfree, kw["kd_order"]),
+                              bounds, lmbda, **bkw)
+    kernels.reset_launches()
+    got = dist_ba_delta(mesh, poses0, ctr, intr, target, weight, valid, ii, jj, kd, t0_, nfree,
+                        bounds, lmbda, **bkw)
+    torch.cuda.synchronize()
+    launches["dist_ba_delta"] = _launched(kernels)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"phase 10, dist_ba_delta at {target.shape[0]} edges, W {kw['W']}, Md {kw['Md']} "
+          f"(world size 1): bit for bit ba_delta: {equal}; launches {launches['dist_ba_delta']}")
+    if not equal or not launches["dist_ba_delta"].get("spd_solve"):
+        raise AssertionError("dist_ba_delta: not ba_delta's step, or no SPD solve launched")
+
+    # ---- 5. one training step through apps/train.py --mesh 1,1 ----
+    npz = os.path.join(ROOT, "weights", "vonet_synth.npz")
+    argv = ["--dataset", "synthetic", "--ht", "480", "--wd", "640", "--n_frames", "15",
+            "--unroll", "18", "--batch", "1", "--init_npz", npz, "--steps", "1",
+            "--log_every", "1", "--npz_every", "1000000", "--ckpt_every", "1000000",
+            "--name", "mesh"]
+    nets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("mesh", ["--mesh", "1,1"]), ("plain", [])):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            nets[name] = train_app.main(argv + extra + ["--outdir", os.path.join(tmp, name)])[0]
+            torch.cuda.synchronize()
+            if name == "mesh":  # phase 8's rows name the training path's sites
+                n = _launched(kernels)
+                launches["mesh_train"] = dict(n, segsum_train=n.get("segsum", 0),
+                                              spd_train=n.get("spd_solve", 0))
+                with open(os.path.join(tmp, name, "runs", "mesh", "metrics.jsonl")) as f:
+                    row = json.loads(f.readline())
+                sec = time.perf_counter() - t0
+    dparam = max((a - nets["plain"].state_dict()[k]).abs().max().item()
+                 for k, a in nets["mesh"].state_dict().items())
+    print(f"phase 10, train --mesh 1,1: loss {row['loss']:.5g} gnorm {row['gnorm']:.5g} "
+          f"({sec:.1f} s with set-up); largest parameter difference from the step without a "
+          f"mesh {dparam:.3g} (corr_bwd's f32 atomics: no bit equality); launches "
+          f"{launches['mesh_train']}")
+    if not np.isfinite(row["loss"]):
+        raise AssertionError("train --mesh 1,1: the loss is not finite")
+    dist.destroy_process_group()
+    shutil.rmtree(store)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2120,7 +2439,7 @@ def main():
     stats = phase_kernels(torch, kernels)
     print(f"phase 2: kernels agree with their plain versions ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    launches = phase_main_path(torch, kernels)
+    launches, main_ate = phase_main_path(torch, kernels)
     print(f"phase 3: main path ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     impl_launches = phase_corr_impls(torch, kernels)
@@ -2147,6 +2466,10 @@ def main():
     t0 = time.perf_counter()
     export_launches = phase_export_apps(torch, kernels, smi)
     print(f"phase 9: export, demo, evaluation ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    p10 = phase_gradient_bias_parallel(torch, kernels, smi, main_ate, stream)
+    print(f"phase 10: GRADIENT_BIAS, the parallel layer, Timer ok "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     cp_src, cp_tpu = "dpvo_tpu_torch/csrc/corr_pallas.cu", "dpvo_tpu/ops/corr_pallas.py"
     meta = {  # source, the TPU kernel's pallas_call, the run whose launches count
@@ -2192,6 +2515,12 @@ def main():
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": s["library_ms"]})
     # SoftAgg's sums inside phase 9's exported update (update.pt2 keeps the op)
     next(r for r in rows if r["name"] == "segsum_bf16")["export_launches"] = export_launches
+    # phase 10's paths: each kernel's launches there, by path (segsum's f32
+    # launches in the mesh tracker are its global-BA rounds' and its windowed
+    # BA's alike)
+    for r in rows:
+        r["phase10_launches"] = {path: n[r["name"]] for path, n in p10.items()
+                                 if n.get(r["name"])}
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

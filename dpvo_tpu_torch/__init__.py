@@ -14,7 +14,8 @@ Layers (mirroring ``dpvo_tpu``):
   slam/     both loop closures          eval/     ATE, writers, protocol
   train/    losses, optimizer, steps    data/     clips, readers, TartanAir
   deploy/   torch.export programs       apps/     entry points, viewer
-  utils/    synthetic scenes, numpy SE(3), optional imports
+  parallel/ process mesh, distributed BA
+  utils/    synthetic scenes, numpy SE(3), optional imports, Timer
 """
 
 from dpvo_tpu_torch.config import Config, load_config  # noqa: F401

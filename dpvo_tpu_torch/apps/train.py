@@ -16,6 +16,18 @@ as in the JAX package. ``--init_encoders DIR`` loads the reference's
 (``runtime/torch_port.py``).
 
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
+
+``--mesh nd,ne`` trains data-parallel over nd * ne processes, one a card
+(the CPU with ``--device cpu``), under torchrun or a process group the
+caller set up:
+
+  torchrun --nproc_per_node 4 -m dpvo_tpu_torch.apps.train --mesh 4,1 --batch 4 ...
+
+Each rank takes its data rank's clips of rank 0's batch, the gradients are
+averaged over the data axis (``train/step.py``), and only rank 0 logs and
+writes checkpoints. The ranks of one edge group compute the same clips
+(the JAX package's edge axis splits the unroll's edge-parallel work; the
+port does not yet).
 """
 
 from __future__ import annotations
@@ -88,10 +100,9 @@ def resolve_device(name: str) -> torch.device:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-card training) is not ported yet (ROADMAP "
-                                  "queue 1, item 8)")
     device = resolve_device(args.device)
+    mesh = _mesh(args.mesh, device) if args.mesh else None
+    main_rank = mesh is None or torch.distributed.get_rank() == 0
 
     from dpvo_tpu_torch.config import Config, load_config
     from dpvo_tpu_torch.data.factory import SyntheticClipDataset, batch_iterator, dataset_factory
@@ -118,6 +129,10 @@ def main(argv=None):
         nets.load_state_dict(params_from_jax(load_npz(args.init_npz)), strict=True)
         print(f"warm-started from {args.init_npz}")
     nets = nets.to(device)
+    if mesh is not None:
+        from dpvo_tpu_torch.parallel import replicate
+
+        replicate(nets, mesh)
     tx, _ = make_optimizer(lr=args.lr, total_steps=args.steps, clip=args.clip,
                            freeze_encoders=args.freeze_encoders)
     opt_state = tx.init({k: p.detach() for k, p in nets.named_parameters()})
@@ -136,11 +151,15 @@ def main(argv=None):
         synth_kw["flow_t"] = tuple(float(x) for x in args.flow_t.split(","))
     if args.flow_r:
         synth_kw["flow_r"] = tuple(float(x) for x in args.flow_r.split(","))
-    ds = dataset_factory([args.dataset], datapath=args.datapath, n_frames=args.n_frames,
-                         ht=args.ht, wd=args.wd, **synth_kw)
-    batches = batch_iterator(ds, batch_size=args.batch, reservoir=args.reservoir)
+    batches = None
+    if main_rank:
+        ds = dataset_factory([args.dataset], datapath=args.datapath, n_frames=args.n_frames,
+                             ht=args.ht, wd=args.wd, **synth_kw)
+        batches = batch_iterator(ds, batch_size=args.batch, reservoir=args.reservoir)
+    if mesh is not None:
+        batches = _broadcast_batches(batches)
 
-    logger = Logger(args.name, outdir=os.path.join(args.outdir, "runs"))
+    logger = Logger(args.name, outdir=os.path.join(args.outdir, "runs")) if main_rank else None
     gen = torch.Generator().manual_seed(1234)
 
     val_batch = None
@@ -153,7 +172,8 @@ def main(argv=None):
                      for i, k in enumerate(("images", "poses", "disps", "intrinsics"))}
 
     step_fn = make_train_step(cfg, tx, STEPS=args.unroll, flow_weight=args.flow_weight,
-                              pose_weight=args.pose_weight, frozen_encoders=args.freeze_encoders)
+                              pose_weight=args.pose_weight, frozen_encoders=args.freeze_encoders,
+                              mesh=mesh)
     val_fn = (make_val_step(cfg, STEPS=args.unroll, flow_weight=args.flow_weight,
                             pose_weight=args.pose_weight) if args.val_every else None)
     tlast = time.time()
@@ -168,7 +188,7 @@ def main(argv=None):
               and start_step == 0)
         nets, opt_state, metrics = step_fn(nets, opt_state, batch, gen, structure_only=so,
                                            lr_scale=lr_scale)
-        if (step + 1) % args.log_every == 0:
+        if main_rank and (step + 1) % args.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}  # waits for the device
             now = time.time()
             m["steps_per_s"] = args.log_every / max(now - tlast, 1e-9)
@@ -180,9 +200,10 @@ def main(argv=None):
             vm = val_fn(nets, val_batch, [_val_draws(cfg, val_batch, args.unroll, device, i)
                                           for i in range(args.val_clips)])
             vm = {f"val_{k}": float(v) for k, v in vm.items()}
-            logger.write_dict(vm, step=step + 1)
-            print(f"[val @{step + 1}] " + " ".join(f"{k}={v:.4g}" for k, v in vm.items()),
-                  flush=True)
+            if main_rank:
+                logger.write_dict(vm, step=step + 1)
+                print(f"[val @{step + 1}] " + " ".join(f"{k}={v:.4g}" for k, v in vm.items()),
+                      flush=True)
             # the guard engages once the pose loss is live
             if step + 1 > args.structure_only or args.init_npz or args.ckpt:
                 vl = vm["val_loss"]
@@ -190,7 +211,8 @@ def main(argv=None):
                     best_val = vl
                     best_snap = (copy.deepcopy(nets.state_dict()), copy.deepcopy(opt_state),
                                  step + 1)
-                    save_npz(os.path.join(ckpt_dir, f"{args.name}_best.npz"), best_snap[0])
+                    if main_rank:
+                        save_npz(os.path.join(ckpt_dir, f"{args.name}_best.npz"), best_snap[0])
                 elif vl > 2.0 * best_val and best_snap is not None:
                     lr_scale = max(lr_scale * 0.5, 1.0 / 64.0)
                     nets.load_state_dict(best_snap[0])
@@ -199,18 +221,41 @@ def main(argv=None):
                           f"restored best (step {best_snap[2]}), lr_scale -> {lr_scale:.4f}",
                           flush=True)
 
-        if (step + 1) % args.npz_every == 0:
+        if main_rank and (step + 1) % args.npz_every == 0:
             save_npz(os.path.join(ckpt_dir, f"{args.name}_{step + 1:06d}.npz"),
                      nets.state_dict())
             print(f"npz snapshot at {step + 1}", flush=True)
-        if (step + 1) % args.ckpt_every == 0:
+        if main_rank and (step + 1) % args.ckpt_every == 0:
             torch.save({"params": nets.state_dict(), "opt_state": opt_state, "step": step + 1},
                        os.path.join(ckpt_dir, f"{args.name}_{step + 1:06d}.pt"))
             print(f"saved checkpoint at {step + 1}", flush=True)
 
-    logger.close()
-    print("training loop done")
+    if main_rank:
+        logger.close()
+        print("training loop done")
     return nets, opt_state
+
+
+def _mesh(spec: str, device: torch.device):
+    """The (data, edge) mesh of ``--mesh nd,ne``: the process joins its group
+    (torchrun's environment; the CPU on gloo, the card on NCCL) unless it
+    has, and the group must hold nd * ne processes."""
+    from dpvo_tpu_torch.parallel import make_mesh
+    from dpvo_tpu_torch.parallel.multihost import init_distributed
+
+    nd, ne = (int(x) for x in spec.split(","))
+    init_distributed(backend="gloo" if device.type == "cpu" else None)
+    return make_mesh(nd, ne, device_type=device.type)
+
+
+def _broadcast_batches(batches):
+    """Rank 0's batches on every rank (the others pass None): a batch then
+    does not depend on a rank's clip threads (``--reservoir`` samples a pool
+    whose content depends on their timing)."""
+    while True:
+        box = [next(batches) if batches is not None else None]
+        torch.distributed.broadcast_object_list(box, src=0)
+        yield box[0]
 
 
 def _val_draws(cfg, batch, steps: int, device, i: int):
@@ -219,7 +264,7 @@ def _val_draws(cfg, batch, steps: int, device, i: int):
 
     F, H, W = batch["images"].shape[1:4]
     return draw_inputs(F, cfg.PATCHES_PER_FRAME, H // cfg.RES, W // cfg.RES, steps,
-                       torch.Generator().manual_seed(7 + i), device)
+                       torch.Generator().manual_seed(7 + i), device, cfg.CENTROID_SEL_STRAT)
 
 
 if __name__ == "__main__":

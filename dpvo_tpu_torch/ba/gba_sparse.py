@@ -28,6 +28,10 @@ are XLA, not a Pallas kernel; the SPD kernel stops at 96 unknowns). The
 port solves at the live size (W free poses, Md depth variables) where
 the JAX package pads to ``GBA_POSES_MAX`` / ``GBA_DEPTHS_MAX`` with
 identity rows and empty variables: the live block has the same solution.
+
+``dist_gba`` splits the rows and kpairs over the ranks of a mesh's edge
+axis (``shard_indices``) and sums their partial reductions with
+``all_reduce``, as the JAX package's ``dist_gba`` does with ``psum``.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 
 from dpvo_tpu_torch.ba.segsum import segment_sum
 from dpvo_tpu_torch.ba.solver import (BAProblem, _center_residuals, apply_depth_retr,
-                                      apply_pose_retr)
+                                      apply_pose_retr, no_sum)
 
 PAIR_CHUNK = 1 << 20  # kpairs whose [chunk, 36] products exist at once
 
@@ -137,6 +141,28 @@ def build_sparse_indices(ii: np.ndarray, jj: np.ndarray, kd: np.ndarray, t0: int
     )
 
 
+def shard_indices(idx, rank: int, world: int):
+    """Rank ``rank``'s part of ``build_sparse_indices``' arrays (numpy, or
+    ``index_tensors``' tensors) for a BA distributed over ``world`` ranks
+    (``dist_gba``), as the JAX package shards them over its mesh's edge
+    axis: a contiguous slice [s, e) of the rows (re, ra, rs, r2f) and of
+    the kpairs' sorted order (a contiguous range of the sorted
+    ``pair_order`` is itself sorted by segment id, so each chunk's identity
+    order holds); the entries and the edge-side orders stay whole. The
+    slice's stable r2f order is the rows of the whole order that fall in
+    [s, e), in that order, less s."""
+    out = dict(idx)
+    R, KP = len(idx["re"]), len(idx["pair_order"])
+    s, e = R * rank // world, R * (rank + 1) // world
+    for k in ("re", "ra", "rs", "r2f"):
+        if k in idx:
+            out[k] = idx[k][s:e]
+    order = idx["r2f_order"]
+    out["r2f_order"] = order[(order >= s) & (order < e)] - s
+    out["pair_order"] = idx["pair_order"][KP * rank // world:KP * (rank + 1) // world]
+    return out
+
+
 def index_tensors(idx: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """build_sparse_indices' arrays as tensors on ``device`` (the kernel's
     ids and orders int32, the masks bool)."""
@@ -148,8 +174,14 @@ def index_tensors(idx: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]
 
 def _iteration(poses, depths, patch_ctr, intrinsics, target, weight, valid, ii, jj, kd,
                t0: int, nfree: int, bounds, lmbda: float, idx, *, W: int, Md: int, ep: float,
-               lm: float, res_clip: float):
-    """One sparse Gauss-Newton iteration; returns (poses', depths')."""
+               lm: float, res_clip: float, allsum=no_sum):
+    """One sparse Gauss-Newton iteration; returns (poses', depths').
+
+    ``allsum`` (``ba/solver.no_sum``) sums its tensors over the ranks that
+    share the rows and kpairs (``dist_gba``: each reduces its
+    ``shard_indices`` slice, as the JAX iteration's ``psum`` over the edge
+    axis); the edge-side terms and the entries are computed whole on every
+    rank."""
     prob = BAProblem(poses, torch.cat([patch_ctr[:, :2], depths[:, None]], -1), intrinsics,
                      target, weight, valid, ii, jj, kd, t0, nfree)
     r, w, Ji, Jj, Jz = (x.to(torch.float32) for x in _center_residuals(prob, bounds, res_clip))
@@ -182,7 +214,7 @@ def _iteration(poses, depths, patch_ctr, intrinsics, target, weight, valid, ii, 
     F = fk.shape[0]
     Jr = torch.where(idx["rs"][:, None, None], Jj[re], Ji[re])  # [R, 2, 6]
     ekr = ((w * Jz)[re][:, :, None] * Jr).sum(1)
-    Fe = ssum(ekr, r2f, idx["r2f_order"], F)  # [F, 6]
+    (Fe,) = allsum(ssum(ekr, r2f, idx["r2f_order"], F))  # [F, 6]
 
     # E Q E^T, reduced into S over chunks of pairs taken in sorted id order
     # (each chunk's ids are then sorted: its order is the identity)
@@ -194,6 +226,7 @@ def _iteration(poses, depths, patch_ctr, intrinsics, target, weight, valid, ii, 
         pv = Q[fk[q1]][:, None, None] * (Fe[q1][:, :, None] * Fe[q2][:, None, :])
         ident = torch.arange(q.shape[0], dtype=torch.int32, device=dev)
         Spairs = Spairs - ssum(pv.reshape(-1, 36), pair_seg[q], ident, W * W)
+    (Spairs,) = allsum(Spairs)
     S = (B + Spairs).reshape(W, W, 6, 6).permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
     # truncated kpairs can drop one of a symmetric block pair
     S = 0.5 * (S + S.T)
@@ -227,15 +260,15 @@ def _iteration(poses, depths, patch_ctr, intrinsics, target, weight, valid, ii, 
 
 def gba(poses, patch_ctr, intrinsics, target, weight, valid, ii, jj, kd, t0: int, nfree: int,
         bounds, lmbda: float, idx: Dict[str, torch.Tensor], *, W: int, Md: int,
-        iterations: int = 2, ep: float = 1.0, lm: float = 1e-4,
-        res_clip: float = 128.0) -> Tuple[torch.Tensor, torch.Tensor]:
+        iterations: int = 2, ep: float = 1.0, lm: float = 1e-4, res_clip: float = 128.0,
+        allsum=no_sum) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sparse-assembled global BA; returns (poses', depths' [Md]).
 
     The contract of ``ba/solver.ba`` with clamp_mode "runtime", plus the
     host-built sparsity ``idx`` (``index_tensors(build_sparse_indices(...))``
     with the same W). Edges past the ones ``build_sparse_indices`` saw are
     padding (invalid) and are left out. W >= nfree free poses from t0;
-    Md depth variables (patch_ctr [Md, 3]).
+    Md depth variables (patch_ctr [Md, 3]). ``allsum``: ``_iteration``'s.
     """
     E = idx["kd_order"].shape[0]
     target, weight, valid = target[:E], weight[:E], valid[:E]
@@ -245,5 +278,24 @@ def gba(poses, patch_ctr, intrinsics, target, weight, valid, ii, jj, kd, t0: int
     for _ in range(iterations):
         poses, depths = _iteration(poses, depths, patch_ctr, intrinsics, target, weight, valid,
                                    ii, jj, kd, t0, nfree, bounds, lmbda, idx, W=W, Md=Md, ep=ep,
-                                   lm=lm, res_clip=res_clip)
+                                   lm=lm, res_clip=res_clip, allsum=allsum)
     return poses, depths
+
+
+def dist_gba(mesh, poses, patch_ctr, intrinsics, target, weight, valid, ii, jj, kd, t0: int,
+             nfree: int, bounds, lmbda: float, idx: Dict[str, torch.Tensor], *, W: int,
+             Md: int, iterations: int = 2, ep: float = 1.0, lm: float = 1e-4,
+             res_clip: float = 128.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gba`` over the mesh's ``edge`` axis (the JAX package's
+    ``dist_gba``), on the same arguments, whole on every rank. Each rank
+    takes its ``shard_indices`` of idx (its rank and the size of the edge
+    axis), reduces its rows into the entries' couplings and its kpairs into
+    the camera system, one ``all_reduce`` over the edge group sums each, and
+    every rank solves: each rank returns the same (poses', depths'). On one
+    rank it is ``gba`` bit for bit."""
+    from dpvo_tpu_torch.parallel.shard import all_sum, edge_rank
+
+    return gba(poses, patch_ctr, intrinsics, target, weight, valid, ii, jj, kd, t0, nfree,
+               bounds, lmbda, shard_indices(idx, *edge_rank(mesh)), W=W, Md=Md,
+               iterations=iterations, ep=ep, lm=lm, res_clip=res_clip,
+               allsum=all_sum(mesh, "edge"))

@@ -94,8 +94,19 @@ def _center_residuals(prob: BAProblem, bounds, res_clip: float):
     return r, w, Ji, Jj, Jz
 
 
-def assemble_normal_eqs(prob: BAProblem, bounds, *, W: int, Md: int, res_clip: float = 128.0):
-    """Returns (B6 [6W,6W], E6 [6W,Md], C [Md], u [Md], v6 [6W])."""
+def no_sum(*xs):
+    """The ``allsum`` of a BA on one rank: its tensors as they are. A
+    distributed BA passes ``parallel.shard.all_sum(mesh, axis)``, which
+    returns the tensors summed over the axis's ranks."""
+    return xs
+
+
+def assemble_normal_eqs(prob: BAProblem, bounds, *, W: int, Md: int, res_clip: float = 128.0,
+                        allsum=no_sum):
+    """Returns (B6 [6W,6W], E6 [6W,Md], C [Md], u [Md], v6 [6W]).
+
+    allsum (``no_sum``): sums the partial B6, v6 and depth sums over the
+    ranks that each assembled a part of the edges (``parallel/dist_ba.py``)."""
     r, w, Ji, Jj, Jz = (x.to(torch.float32) for x in _center_residuals(prob, bounds, res_clip))
     pi = prob.ii - prob.t0
     pj = prob.jj - prob.t0
@@ -132,6 +143,7 @@ def assemble_normal_eqs(prob: BAProblem, bounds, *, W: int, Md: int, res_clip: f
     order = prob.kd_order if prob.kd_order is not None else \
         torch.argsort(kd, stable=True).to(torch.int32)
     sums = segment_sum(payload, kd, order, Md)
+    B6, v6, sums = allsum(B6, v6, sums)
     E6 = sums[:, : payload.shape[1] - 2].T
     C, u = sums[:, -2], sums[:, -1]
     return B6, E6, C, u, v6

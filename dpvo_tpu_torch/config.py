@@ -35,7 +35,7 @@ class Config:
     PATCH_LIFETIME: int = 12
 
     # ---- patch selection ----
-    CENTROID_SEL_STRAT: str = "RANDOM"   # RANDOM | GRADIENT_BIAS (not ported)
+    CENTROID_SEL_STRAT: str = "RANDOM"   # RANDOM | GRADIENT_BIAS
 
     # ---- keyframing ----
     KEYFRAME_INDEX: int = 4
@@ -49,7 +49,7 @@ class Config:
 
     MIXED_PRECISION: bool = True         # bf16 feature maps / update operator
 
-    # ---- loop closure (not ported yet; must stay off) ----
+    # ---- loop closure: proximity (LOOP_CLOSURE) and classic ----
     LOOP_CLOSURE: bool = False
     BACKEND_THRESH: float = 64.0
     MAX_EDGE_AGE: int = 1000

@@ -2,18 +2,22 @@
 ``dpvo_tpu/deploy/export.py`` (StableHLO there).
 
 An export directory holds:
-    patchify.pt2   image [H,W,3] uint8, centroids [M,2] -> fmap, gmap,
-                   imap, patches, clr (``runtime/steps.PatchifyStep``)
+    patchify.pt2   image [H,W,3] uint8, draws [K,2] -> fmap, gmap, imap,
+                   patches, clr (``runtime/steps.PatchifyStep``: K = M
+                   centroids under RANDOM, 3M candidates under
+                   GRADIENT_BIAS, whose selection the program holds)
     update.pt2     net, ctx, corr, ix, jx, mask_ix, mask_jx, kk_seg, ij_seg,
                    valid, kk_order, ij_order -> net', delta, weight
                    (``UpdateStep``), at any edge count 2..e_max
     meta.json      the JAX package's keys (ht, wd, e_max, dim, fdim,
                    corr_width, patches_per_frame, mixed_precision,
-                   m_opt_max, pair_max) and the device type it runs on
+                   m_opt_max, pair_max), the device type it runs on and
+                   the centroid strategy (centroid_sel_strat)
     params.npz     the weights in the JAX package's format
 
-The patch centroids are an input, not a PRNG key: the tracker draws them
-(``runtime/dpvo.py``). The JAX package pads the update to ``e_max`` edges
+The patch draws are an input, not a PRNG key: the tracker draws them
+(``runtime/dpvo.py``), and a tracker runs only an export of its own
+strategy. The JAX package pads the update to ``e_max`` edges
 and exports a second program at the motion probe's edge count; the port
 runs on the live edge count, so ``update.pt2`` is exported once with a
 dynamic edge dimension. Its segment counts are fixed at the capacities
@@ -39,7 +43,7 @@ import torch.nn as nn
 
 import dpvo_tpu_torch.ba.segsum  # noqa: F401  (registers dpvo_tpu_torch::segment_sum)
 from dpvo_tpu_torch.config import Config
-from dpvo_tpu_torch.models.patchifier import random_centroids
+from dpvo_tpu_torch.models.patchifier import draw_count, random_candidates
 from dpvo_tpu_torch.runtime.steps import PAIR_MAX, PatchifyStep
 from dpvo_tpu_torch.runtime.weights import save_npz
 
@@ -94,12 +98,13 @@ def export_network(nets, cfg: Config, ht: int, wd: int, outdir: str, device="cud
     g = torch.Generator().manual_seed(0)
     M, h, w = cfg.PATCHES_PER_FRAME, ht // cfg.RES, wd // cfg.RES
     image = torch.randint(0, 256, (ht, wd, 3), generator=g, dtype=torch.uint8).to(device)
-    centroids = random_centroids(M, h, w, g).to(device)
+    points = random_candidates(draw_count(cfg.CENTROID_SEL_STRAT, M), h, w, g).to(device)
     # an example edge count that equals no other size of the program
     e_ex = max(2, min(E, 2 * M + 3))
     dyn = {0: torch.export.Dim("E", min=2, max=E)}
     with torch.no_grad():
-        pf = torch.export.export(PatchifyStep(nets.patchifier, fdt), (image, centroids))
+        pf = torch.export.export(PatchifyStep(nets.patchifier, fdt, M, cfg.CENTROID_SEL_STRAT),
+                                 (image, points))
         up = torch.export.export(UpdateStep(nets.update, cfg.M_OPT_MAX, 2 * PAIR_MAX),
                                  update_inputs(cfg, e_ex, device, g),
                                  dynamic_shapes=(dyn,) * 12)
@@ -107,7 +112,8 @@ def export_network(nets, cfg: Config, ht: int, wd: int, outdir: str, device="cud
     torch.export.save(up, os.path.join(outdir, "update.pt2"))
     meta = dict(ht=ht, wd=wd, e_max=E, dim=cfg.DIM, fdim=cfg.FDIM, corr_width=cfg.CORR_WIDTH,
                 patches_per_frame=M, mixed_precision=bool(cfg.MIXED_PRECISION),
-                m_opt_max=cfg.M_OPT_MAX, pair_max=PAIR_MAX, device=device.type)
+                m_opt_max=cfg.M_OPT_MAX, pair_max=PAIR_MAX, device=device.type,
+                centroid_sel_strat=cfg.CENTROID_SEL_STRAT)
     with open(os.path.join(outdir, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
     return outdir
@@ -131,7 +137,7 @@ class ExportedVONet:
 
     def __init__(self, patchify_ep, update_ep, meta):
         self.patchify_program, self.update_program = patchify_ep, update_ep
-        self.patchify = patchify_ep.module()  # (image_u8, centroids) as PatchifyStep
+        self.patchify = patchify_ep.module()  # (image_u8, draws) as PatchifyStep
         self._update = update_ep.module()
         self.meta = meta
         self.e_max = meta["e_max"]

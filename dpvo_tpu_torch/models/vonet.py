@@ -10,7 +10,8 @@ The edge schedule is static given (F, M, STEPS): ``build_schedule`` is a
 numpy copy of the JAX one. The JAX PRNG draws (patch centroids, the
 initial inverse depths ``d0`` and each step's frame-dropout coin) cannot
 be reproduced in torch, so ``vo_forward`` takes them as an input
-(``draw_inputs`` draws them from a ``torch.Generator``). The correlation
+(``draw_inputs`` draws them from a ``torch.Generator``; under
+GRADIENT_BIAS the candidates, which it selects from). The correlation
 is the exact-window kernel with its hand-written backward pass
 (``ops/corr_cuda.corr_features_train``); BA's depth reduction and
 SoftAgg's sums go through the sorted segment sum, the pose solve through
@@ -33,7 +34,7 @@ from dpvo_tpu_torch.ba.spd_solve import MAX_N as SPD_MAX_N
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.geom import projective as pops
 from dpvo_tpu_torch.lie import se3
-from dpvo_tpu_torch.models.patchifier import random_centroids
+from dpvo_tpu_torch.models.patchifier import draw_count, random_candidates, select_centroids
 from dpvo_tpu_torch.ops.corr import avg_pool2d_nhwc
 from dpvo_tpu_torch.ops.corr_cuda import corr_features_train
 from dpvo_tpu_torch.runtime.topology import neighbors
@@ -113,15 +114,18 @@ def step_tensors(st: StepTopo, device) -> Dict[str, torch.Tensor]:
 
 
 def draw_inputs(F: int, M: int, h: int, w: int, STEPS: int, generator: torch.Generator,
-                device=None) -> Dict[str, torch.Tensor]:
-    """The unroll's random draws, as ``vo_forward`` takes them: RANDOM
-    patch centroids [F, M, 2] on the 1/4-resolution map (h, w), the
-    initial inverse depths d0 [F*M] ~ U[0, 1), and each step's dropout
-    coin drop [STEPS] (true with probability 0.1)."""
-    cent = torch.stack([random_centroids(M, h, w, generator) for _ in range(F)])
+                device=None, strategy: str = "RANDOM") -> Dict[str, torch.Tensor]:
+    """The unroll's random draws, as ``vo_forward`` takes them: the patch
+    points on the 1/4-resolution map (h, w) under ``strategy`` (RANDOM:
+    the centroids [F, M, 2]; GRADIENT_BIAS: candidates [F, 3M, 2], of which
+    ``vo_forward`` keeps the M of highest image gradient), the initial
+    inverse depths d0 [F*M] ~ U[0, 1), and each step's dropout coin drop
+    [STEPS] (true with probability 0.1)."""
+    K = draw_count(strategy, M)
+    pts = torch.stack([random_candidates(K, h, w, generator) for _ in range(F)])
     d0 = torch.rand((F * M,), generator=generator)
     drop = torch.rand((STEPS,), generator=generator) < 0.1
-    return dict(centroids=cent.to(device), d0=d0.to(device), drop=drop.to(device))
+    return {"points": pts.to(device), "d0": d0.to(device), "drop": drop.to(device)}
 
 
 def _apply(module, prefix: str, params, *args, **kwargs):
@@ -144,8 +148,10 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
     differentiable bf16 cast of f32 master weights). images [F, H, W, 3]
     in [0, 255]; poses_gt [F, 7] world-to-camera; disps [F, H, W]
     ground-truth inverse depth; intrinsics [4] at full resolution; draws
-    as ``draw_inputs`` gives them. ``frozen_encoders`` runs the
-    patchifier without a gradient."""
+    as ``draw_inputs`` gives them for ``cfg.CENTROID_SEL_STRAT`` (the
+    GRADIENT_BIAS candidates scored on each frame's normalized image in
+    the configuration's dtype, as the JAX patchifier scores them).
+    ``frozen_encoders`` runs the patchifier without a gradient."""
     F, H, W, _ = images.shape
     M, P = cfg.PATCHES_PER_FRAME, cfg.P
     dev = images.device
@@ -158,9 +164,10 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
     intr_all = (intrinsics.to(torch.float32) / cfg.RES)[None].repeat(F, 1)
     disps4 = disps[:, 1::cfg.RES, 1::cfg.RES].to(torch.float32)
 
+    centroids = select_centroids(images_n, draws["points"], M, cfg.CENTROID_SEL_STRAT)
     with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen_encoders):
         fmap, gmap, imap, patches, _ = _apply(nets.patchifier, "patchifier", params, images_n,
-                                              draws["centroids"], disps=disps4)
+                                              centroids, disps=disps4)
     pyr1 = fmap.to(fdt)
     pyr2 = avg_pool2d_nhwc(pyr1, 4)
     gmap = gmap.to(fdt)

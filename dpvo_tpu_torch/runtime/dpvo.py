@@ -67,7 +67,7 @@ from dpvo_tpu_torch.ba.gba_sparse import build_sparse_indices
 from dpvo_tpu_torch.ba.spd_solve import MAX_N as SPD_MAX_N
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.lie import se3
-from dpvo_tpu_torch.models.patchifier import random_centroids
+from dpvo_tpu_torch.models.patchifier import draw_count, random_candidates
 from dpvo_tpu_torch.runtime.state import make_state
 from dpvo_tpu_torch.runtime.steps import StepFunctions, edge_tensors
 from dpvo_tpu_torch.runtime.topology import Topology, dense_rank
@@ -97,23 +97,29 @@ class DPVO:
         for t, image, intrinsics in stream: slam(t, image, intrinsics)
         poses, tstamps = slam.terminate()
 
-    ``draws(frame) -> (centroids [M,2], depth_init [M])`` replaces the
-    two random draws of frame ``frame`` (the call index): the patch
-    centroids (integer x in [1, w-1), y in [1, h-1) at 1/4 resolution)
+    ``draws(frame) -> (points [K,2], depth_init [M])`` replaces the two
+    random draws of frame ``frame`` (the call index): the patch points
+    (integer x in [1, w-1), y in [1, h-1) at 1/4 resolution; with
+    ``CENTROID_SEL_STRAT`` RANDOM the M centroids, with GRADIENT_BIAS the
+    3M candidates the patchify scores by image gradient and keeps M of)
     and the random inverse depths used before initialization. By default
     they come from a CPU ``torch.Generator`` seeded with ``seed``, so the
     draws do not depend on the device. ``detect``: classic loop closure's
     keypoint detector (``slam/retrieval.OrbRetrieval``), OpenCV's ORB when
     None. ``network``: an ``.npz`` path, a flat flax dict, an export
     directory (``deploy/export.py``), or None for random weights.
+
+    ``mesh``: a (data, edge) mesh of processes (``parallel.make_mesh``); the
+    global BA of loop closure then splits its rows and kpairs over the
+    edge axis (``ba/gba_sparse.dist_gba``). Every rank of the mesh runs its
+    own tracker on the same frames with the same draws and ends with the
+    same trajectory; ``device`` is the rank's own card (or the CPU under a
+    gloo group).
     """
 
     def __init__(self, cfg: Config, network=None, ht: int = 480, wd: int = 640, device=None,
                  seed: int = 0, draws: Optional[Draws] = None, detect: Optional[Detect] = None,
-                 viz: bool = False):
-        if cfg.CENTROID_SEL_STRAT != "RANDOM":
-            raise NotImplementedError(f"CENTROID_SEL_STRAT={cfg.CENTROID_SEL_STRAT} is not "
-                                      "ported yet (RANDOM only)")
+                 viz: bool = False, mesh=None):
         self.cfg = cfg
         self.ht, self.wd = ht, wd
         self.device = resolve_device(device)
@@ -130,7 +136,7 @@ class DPVO:
             torch.backends.cuda.matmul.allow_tf32 = False
         fdt = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
         self.nets = load_networks(cfg, network, seed).to(self.device, fdt).eval()
-        self.steps = StepFunctions(cfg, self.nets, self.device, exported=exported)
+        self.steps = StepFunctions(cfg, self.nets, self.device, exported=exported, mesh=mesh)
         self.state = make_state(cfg, ht, wd, self.device)
         self.topo = Topology(cfg)
         self._gen = torch.Generator().manual_seed(seed)
@@ -185,8 +191,8 @@ class DPVO:
     def _random_draws(self, frame: int):
         M = self.cfg.PATCHES_PER_FRAME
         h, w = self.ht // self.cfg.RES, self.wd // self.cfg.RES
-        centroids = random_centroids(M, h, w, self._gen)
-        return centroids, torch.rand(M, generator=self._gen)
+        points = random_candidates(draw_count(self.cfg.CENTROID_SEL_STRAT, M), h, w, self._gen)
+        return points, torch.rand(M, generator=self._gen)
 
     def _edges(self, **kw):
         es = self.topo.edge_set(pad=len(kw["ii"]) if "ii" in kw else len(self.topo.ii), **kw)
@@ -227,13 +233,13 @@ class DPVO:
             self.tstamps[self.n] = self.counter
         *_, a, b, c = [1.0] * 3 + self.tlist
         fac = (c - b) / (b - a) if b != a else 1.0
-        centroids, depth_init = self.draws(self.counter)
+        points, depth_init = self.draws(self.counter)
         self.counter += 1
 
         image_t = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
-        centroids = torch.as_tensor(centroids, dtype=torch.float32).to(self.device)
+        points = torch.as_tensor(points, dtype=torch.float32).to(self.device)
         depth_init = torch.as_tensor(depth_init, dtype=torch.float32)
-        fmap, gmap, imap, patches, clr = self.steps._patchify(image_t, centroids)
+        fmap, gmap, imap, patches, clr = self.steps._patchify(image_t, points)
         self.steps._ingest(self.state, self.n, fmap, gmap, imap, patches, clr, intrinsics, fac,
                            self.is_initialized, self.n > 1, depth_init)
 
@@ -522,7 +528,8 @@ def _load_export_dir(path: str, cfg: Config, ht: int, wd: int, device):
     me = read_meta(path)
     want = {"ht": ht, "wd": wd, "e_max": cfg.E_MAX, "mixed_precision": bool(cfg.MIXED_PRECISION),
             "m_opt_max": cfg.M_OPT_MAX, "patches_per_frame": cfg.PATCHES_PER_FRAME,
-            "dim": cfg.DIM, "fdim": cfg.FDIM, "device": device.type}
+            "dim": cfg.DIM, "fdim": cfg.FDIM, "device": device.type,
+            "centroid_sel_strat": cfg.CENTROID_SEL_STRAT}
     mism = {k: me.get(k) for k, v in want.items() if me.get(k) != v}
     if mism:
         raise ValueError(f"exported network {path} was exported for {mism}, incompatible with "

@@ -24,6 +24,7 @@ from dpvo_tpu_torch.ba import solver as ba_solver
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.geom import projective as pops
 from dpvo_tpu_torch.lie import se3
+from dpvo_tpu_torch.models.patchifier import select_centroids
 from dpvo_tpu_torch.ops.corr import avg_pool2d_nhwc
 from dpvo_tpu_torch.ops.corr_cuda import corr_features
 from dpvo_tpu_torch.ops.corr_pallas import (corr_features_pallas, corr_features_pallas_dma,
@@ -72,27 +73,34 @@ def median(x):
 
 class PatchifyStep(nn.Module):
     """The tracker's patchify on tensors alone (the module that
-    ``deploy/export.py`` exports): image [H,W,3] uint8, centroids [M,2] ->
+    ``deploy/export.py`` exports): image [H,W,3] uint8, draws [K,2] ->
     (fmap [h,w,fdim], gmap [M,fdim,P,P], imap [M,dim], patches [M,3,P,P],
-    clr [M,3] f32). The features in the configuration's dtype; the colours
+    clr [M,3] f32). The draws are the M centroids (RANDOM) or 3M candidates
+    (GRADIENT_BIAS), selected here from the normalized image in the
+    configuration's dtype, which the encoders read
+    (``models/patchifier.select_centroids``), so an exported program keeps
+    the selection. The features in the configuration's dtype; the colours
     in BGR order and scaled to [0, 255] as the JAX step makes them
     (``dpvo_tpu/runtime/steps.py:_patchify``)."""
 
-    def __init__(self, patchifier, fdt):
+    def __init__(self, patchifier, fdt, M: int, strategy: str = "RANDOM"):
         super().__init__()
         self.patchifier = patchifier
         self.fdt = fdt
+        self.M = M
+        self.strategy = strategy
 
-    def forward(self, image_u8, centroids):
-        img = 2.0 * (image_u8.to(torch.float32) / 255.0) - 0.5
-        fmap, gmap, imap, patches, _ = self.patchifier(img[None].to(self.fdt), centroids[None])
+    def forward(self, image_u8, draws):
+        img = (2.0 * (image_u8.to(torch.float32) / 255.0) - 0.5).to(self.fdt)[None]
+        centroids = select_centroids(img, draws[None], self.M, self.strategy)
+        fmap, gmap, imap, patches, _ = self.patchifier(img, centroids)
         # the colours: the centroids are integers, so JAX's bilinear sample
         # at 4 * (c + 0.5) reads the one pixel (4y + 2, 4x + 2). Its value
         # normalized as XLA computes it for the JAX tracker: u times
         # f32(2/255) minus 0.5 rounded once (a fused multiply-add, exact in
         # f64), whose roundings the truncation to uint8 tells apart; rounded
         # to the configuration's dtype as the encoders' input is
-        c = (4 * centroids + 2).long()
+        c = (4 * centroids[0] + 2).long()
         u = image_u8[c[:, 1], c[:, 0]]
         clr = (u.to(torch.float64) * _TWO_OVER_255 - 0.5).to(torch.float32)
         clr = clr.to(self.fdt).to(torch.float32)
@@ -101,16 +109,21 @@ class PatchifyStep(nn.Module):
 
 
 class StepFunctions:
-    def __init__(self, cfg: Config, nets, device, exported=None):
+    def __init__(self, cfg: Config, nets, device, exported=None, mesh=None):
+        """mesh: a ``parallel.make_mesh`` mesh; with one, the global BA runs
+        through ``ba/gba_sparse.dist_gba``, its rows and kpairs split over
+        the mesh's edge axis (JAX step :36-53)."""
         self.cfg = cfg
         self.nets = nets
         self.device = device
         self.fdt = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
         self.exported = exported
+        self.mesh = mesh
         if exported is not None:
             self.patchify = exported.patchify
         elif nets is not None:
-            self.patchify = PatchifyStep(nets.patchifier, self.fdt)
+            self.patchify = PatchifyStep(nets.patchifier, self.fdt, cfg.PATCHES_PER_FRAME,
+                                         cfg.CENTROID_SEL_STRAT)
         self.pmem = cfg.MAX_EDGE_AGE if cfg.LOOP_CLOSURE else cfg.PMEM
         if cfg.CORR_IMPL not in CORR_IMPLS:
             raise ValueError(f"CORR_IMPL={cfg.CORR_IMPL!r}: expected one of {CORR_IMPLS}")
@@ -118,11 +131,11 @@ class StepFunctions:
 
     # ---------------- frame ingestion ----------------
 
-    def _patchify(self, image_u8, centroids):
-        """image_u8 [H,W,3] uint8, centroids [M,2] -> (fmap [h,w,fdim],
-        gmap [M,fdim,P,P], imap [M,dim], patches [M,3,P,P], clr [M,3]):
-        ``PatchifyStep``, or the exported program of it."""
-        return self.patchify(image_u8, centroids)
+    def _patchify(self, image_u8, draws):
+        """image_u8 [H,W,3] uint8, draws [K,2] (``PatchifyStep``'s) ->
+        (fmap [h,w,fdim], gmap [M,fdim,P,P], imap [M,dim], patches [M,3,P,P],
+        clr [M,3]): ``PatchifyStep``, or the exported program of it."""
+        return self.patchify(image_u8, draws)
 
     def _ingest(self, state: VOState, n: int, fmap, gmap_p, imap_p, patches, clr, intrinsics,
                 motion_fac: float, is_initialized: bool, do_motion: bool, depth_init):
@@ -355,9 +368,13 @@ class StepFunctions:
         """Full-history BA over the inactive and active edges, sparse-assembled
         (``ba/gba_sparse.py``). ges: ``Topology.global_edge_set``'s edges;
         pos [ninac] the ring slots of the first ninac; idx: their sparsity
-        (``build_sparse_indices`` with W = max(nfree, 1))."""
+        (``build_sparse_indices`` with W = max(nfree, 1)). With a mesh,
+        through ``dist_gba``."""
         args, kw = self._gba_inputs(state, ges, pos, ninac, t0, nfree, idx)
-        poses, depths = gba_sparse.gba(*args, **kw)
+        if self.mesh is None:
+            poses, depths = gba_sparse.gba(*args, **kw)
+        else:
+            poses, depths = gba_sparse.dist_gba(self.mesh, *args, **kw)
         state.poses.copy_(poses)
         state.dvec[torch.as_tensor(ges["dense2patch"], device=self.device)] = depths
 

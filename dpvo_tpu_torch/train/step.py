@@ -11,6 +11,11 @@ encoders under ``--freeze_encoders``: optax's ``multi_transform`` with
 ``set_to_zero``) get a zero update, no Adam state and no decay, and the
 global norm is taken over the trained leaves only.
 
+Data-parallel training over a mesh of processes (``make_train_step(...,
+mesh=)``, ``apps/train.py --mesh``) averages the gradients over the mesh's
+data axis, where the JAX package shards the batch over its mesh and lets
+XLA reduce (``dpvo_tpu/train/step.py``).
+
 Master parameters stay f32 (flax keeps its parameters f32 under
 ``dtype=bf16``); with ``MIXED_PRECISION`` the unroll runs on a
 differentiable bf16 cast of them (``torch.func.functional_call``), so the
@@ -26,6 +31,7 @@ import torch
 
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.models.vonet import draw_inputs, vo_forward
+from dpvo_tpu_torch.parallel.shard import all_sum, axis_rank, local_clips
 from dpvo_tpu_torch.train.loss import clip_loss
 
 
@@ -131,11 +137,12 @@ def _batch_to(batch, device):
 
 
 def _clip_draws(cfg: Config, batch, draws, STEPS: int, device):
-    """One draw dict per clip: given as a list, or drawn from a generator."""
+    """One draw dict per clip: given as a list, or drawn from a generator
+    for the configuration's centroid strategy."""
     B, F, H, W = batch["images"].shape[:4]
     if isinstance(draws, torch.Generator):
         return [draw_inputs(F, cfg.PATCHES_PER_FRAME, H // cfg.RES, W // cfg.RES, STEPS, draws,
-                            device) for _ in range(B)]
+                            device, cfg.CENTROID_SEL_STRAT) for _ in range(B)]
     if len(draws) != B:
         raise ValueError(f"one draw dict per clip: {len(draws)} for a batch of {B}")
     return [{k: v.to(device) for k, v in d.items()} for d in draws]
@@ -168,8 +175,17 @@ def _forward_params(nets, cfg: Config):
     return {k: p.to(torch.bfloat16) for k, p in nets.named_parameters()}
 
 
+def _data_mean(tensors: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Each tensor averaged over the mesh's data axis, in one all_reduce."""
+    keys = list(tensors)
+    sums = all_sum(mesh, "data")(*(tensors[k].to(torch.float32) for k in keys))
+    n = axis_rank(mesh, "data")[1]
+    return {k: (x / n).to(tensors[k].dtype) for k, x in zip(keys, sums)}
+
+
 def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1,
-                    pose_weight=10.0, frozen_encoders: bool = False, remat: bool = True):
+                    pose_weight=10.0, frozen_encoders: bool = False, remat: bool = True,
+                    mesh=None):
     """Returns train_step(nets, opt_state, batch, draws, structure_only,
     lr_scale) -> (nets, opt_state, metrics).
 
@@ -182,7 +198,16 @@ def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1
     metrics: loss, gnorm (of the raw gradients), flow, tr, ro, px1 as
     device scalars. ``train_step.times`` holds the last step's wall
     seconds of forward, backward and optimizer when ``train_step.timed``
-    is set (each phase then ends in a device synchronize)."""
+    is set (each phase then ends in a device synchronize).
+
+    mesh: a (data, edge) mesh (``parallel.make_mesh``) for data-parallel
+    training: every rank passes the same global batch and draws (or the
+    same generator state) and replicated parameters; each computes the
+    loss of its data rank's clips (``parallel.local_clips``), and the
+    gradients and metrics are averaged over the data axis before the
+    optimizer, so every rank takes the single-process step of the global
+    batch (its loss is the mean over clips). The ranks of one edge group
+    compute the same clips."""
 
     def sync(dev):
         if train_step.timed and dev.type == "cuda":
@@ -195,6 +220,9 @@ def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1
         dev = next(iter(params.values())).device
         batch = _batch_to(batch, dev)
         draws = _clip_draws(cfg, batch, draws, STEPS, dev)
+        if mesh is not None:
+            batch = local_clips(batch, mesh)
+            draws = local_clips({"draws": draws}, mesh)["draws"]
         for p in params.values():
             p.grad = None
         t0 = sync(dev)
@@ -206,6 +234,8 @@ def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1
         t2 = sync(dev)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if mesh is not None:
+            grads = _data_mean(grads, mesh)
         updates, opt_state = tx.update(grads, opt_state, {k: p.detach()
                                                           for k, p in params.items()})
         apply_updates({k: p.data for k, p in params.items()}, updates, lr_scale)
@@ -213,6 +243,8 @@ def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1
         train_step.times = dict(forward=t1 - t0, backward=t2 - t1, optimizer=t3 - t2)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
+        if mesh is not None:
+            metrics = _data_mean(metrics, mesh)
         metrics["gnorm"] = global_norm(grads.values())
         return nets, opt_state, metrics
 

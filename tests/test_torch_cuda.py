@@ -719,3 +719,58 @@ def test_exported_update_launches_segsum_on_the_card(dev, tmp_path, mixed):
             assert (a.float() - b.float()).abs().max() <= 2 ** -6 * b.float().abs().max()
         else:
             assert torch.equal(a, b)
+
+
+def test_dist_gba_two_gloo_ranks_on_cuda_tensors(dev, tmp_path):
+    """Two spawned ranks of a gloo group reduce CUDA tensors on the one card:
+    dist_gba on tests/multihost_worker.py's problem (each rank half the rows
+    and kpairs) within 5e-4 of the card's and the CPU's single-process gba,
+    the two ranks equal."""
+    import torch_parallel_worker as worker
+
+    results = worker.spawn(tmp_path, 2, device="cuda")
+    p = worker.gba_problem()
+    card = [x.cpu() for x in worker.run_gba(p, dev)]
+    cpu = worker.run_gba(p, torch.device("cpu"))
+    for r in results:
+        for a, b, c in zip(r["gba"], card, cpu):
+            assert (a - b).abs().max() < 5e-4 and (a - c).abs().max() < 5e-4
+    for a, b in zip(results[0]["gba"], results[1]["gba"]):
+        assert torch.equal(a, b)
+
+
+def test_mesh_of_one_nccl_rank_is_single_device(dev, tmp_path):
+    """On a world-size-1 NCCL group with a (1, 1) mesh, dist_gba is gba and
+    dist_ba_delta is ba_delta, bit for bit on the card (an all_reduce over
+    one rank is a copy), launching the segment-sum and SPD kernels."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    import torch_parallel_worker as worker
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.ba.solver import BAProblem, ba_delta
+    from dpvo_tpu_torch.parallel import dist_ba_delta, make_mesh
+    from dpvo_tpu_torch.parallel.multihost import init_distributed
+
+    init_distributed(f"file://{tmp_path}/store", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        assert dist.get_backend() == "nccl"
+        p = worker.gba_problem()
+        before = kernels.LAUNCHES["segsum"]
+        got = worker.run_gba(p, dev, mesh=mesh)
+        assert kernels.LAUNCHES["segsum"] > before
+        for a, b in zip(got, worker.run_gba(p, dev)):
+            assert torch.equal(a, b)
+        args, _, n, Md = chip_smoke.gba_problem(torch)
+        args = [a.to(dev) for a in args] + [1, n - 1]
+        bounds = torch.tensor([-64.0, -64.0, 224.0, 184.0], device=dev)
+        want = ba_delta(BAProblem(*args), bounds, 1e-4, W=8, Md=Md)
+        before = kernels.LAUNCHES["spd_solve"]
+        got = dist_ba_delta(mesh, *args, bounds, 1e-4, W=8, Md=Md)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["spd_solve"] == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -62,7 +62,7 @@ def test_export_round_trip(exported):
     image = torch.randint(0, 256, (HT, WD, 3), generator=g, dtype=torch.uint8)
     centroids = torch.stack([torch.randint(1, WD // 4 - 1, (8,), generator=g),
                              torch.randint(1, HT // 4 - 1, (8,), generator=g)], -1).float()
-    eager_pf = PatchifyStep(nets.patchifier, torch.float32)
+    eager_pf = PatchifyStep(nets.patchifier, torch.float32, CFG.PATCHES_PER_FRAME)
     eager_up = UpdateStep(nets.update, CFG.M_OPT_MAX, 2 * PAIR_MAX)
     with torch.no_grad():
         for a, b in zip(net.patchify(image, centroids), eager_pf(image, centroids)):

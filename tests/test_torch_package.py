@@ -53,7 +53,10 @@ REQUIRED = ("dpvo_tpu_torch.slam.proximity", "dpvo_tpu_torch.ba.gba_sparse",
             "dpvo_tpu_torch.apps.eval_synthetic", "dpvo_tpu_torch.apps.evaluate_tartan",
             "dpvo_tpu_torch.apps.evaluate_euroc", "dpvo_tpu_torch.apps.evaluate_tum",
             "dpvo_tpu_torch.apps.evaluate_kitti", "dpvo_tpu_torch.apps.evaluate_icl_nuim",
-            "dpvo_tpu_torch.apps.export_network", "dpvo_tpu_torch.apps.extract_frames")
+            "dpvo_tpu_torch.apps.export_network", "dpvo_tpu_torch.apps.extract_frames",
+            "dpvo_tpu_torch.parallel", "dpvo_tpu_torch.parallel.multihost",
+            "dpvo_tpu_torch.parallel.shard", "dpvo_tpu_torch.parallel.dist_ba",
+            "dpvo_tpu_torch.utils.timer")
 
 
 def test_imports_no_jax():
@@ -63,7 +66,7 @@ def test_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad, required = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 69 and bad == "[]" and required == "True", out.stdout
+    assert int(count) >= 74 and bad == "[]" and required == "True", out.stdout
 
 
 def test_dpvo_without_device_needs_a_card(monkeypatch):
@@ -150,18 +153,27 @@ def test_train_entry_point_needs_a_card(monkeypatch):
     assert train.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("flags, item", [(["--mesh", "2,4"], "item 8")])
-def test_train_entry_point_unported_options_raise(flags, item):
-    """The options whose pieces are not ported name their ROADMAP item
-    (--init_encoders and --dataset tartan are ported: tests/test_torch_deploy.py
-    and tests/test_torch_data.py run them)."""
-    from dpvo_tpu_torch.apps import train
+def test_train_entry_point_mesh_needs_a_process_group(monkeypatch, tmp_path):
+    """--mesh nd,ne trains under a process group of nd * ne processes:
+    without one (no torchrun environment) the entry point raises naming the
+    variables it lacks; in a group of another size it raises naming the
+    size it needs."""
+    import torch.distributed as dist
 
-    args = ["--device", "cpu", "--steps", "0"] + flags
-    if "--dataset" not in flags:
-        args += ["--dataset", "synthetic"]
-    with pytest.raises(NotImplementedError, match=item):
+    from dpvo_tpu_torch.apps import train
+    from dpvo_tpu_torch.parallel.multihost import ENV, init_distributed
+
+    for k in ENV:
+        monkeypatch.delenv(k, raising=False)
+    args = ["--device", "cpu", "--steps", "0", "--dataset", "synthetic", "--mesh", "2,4"]
+    with pytest.raises(RuntimeError, match="MASTER_ADDR.*WORLD_SIZE.*RANK"):
         train.main(args)
+    init_distributed(f"file://{tmp_path}/store", 1, 0, backend="gloo")
+    try:
+        with pytest.raises(ValueError, match="needs 8 processes, the group has 1"):
+            train.main(args)
+    finally:
+        dist.destroy_process_group()
 
 
 def _requests(device):

@@ -63,18 +63,20 @@ def tiny_clip(seed=0):
             scene.intrinsics.astype(np.float32))
 
 
-def jax_draws(key, F=F, M=M, steps=STEPS, h=HT // 4, w=WD // 4):
+def jax_draws(key, F=F, M=M, steps=STEPS, h=HT // 4, w=WD // 4, strategy="RANDOM"):
     """vo_forward's draws from a JAX key, as the port takes them: the
-    patchifier's centroids, d0 and each step's dropout coin."""
+    patchifier's points (RANDOM: M centroids a frame; GRADIENT_BIAS: the 3M
+    candidates it scores), d0 and each step's dropout coin."""
     k_pf, k_d, k_drop = jax.random.split(key, 3)
     kx, ky = jax.random.split(k_pf)
-    x = np.asarray(jax.random.randint(kx, (F, M), 1, w - 1))
-    y = np.asarray(jax.random.randint(ky, (F, M), 1, h - 1))
+    K = M if strategy == "RANDOM" else 3 * M
+    x = np.asarray(jax.random.randint(kx, (F, K), 1, w - 1))
+    y = np.asarray(jax.random.randint(ky, (F, K), 1, h - 1))
     drop = [bool(jax.random.uniform(jax.random.split(k)[0]) < 0.1)
             for k in jax.random.split(k_drop, steps)]
-    return dict(centroids=torch.tensor(np.stack([x, y], -1), dtype=torch.float32),
-                d0=torch.tensor(np.asarray(jax.random.uniform(k_d, (F * M,)))),
-                drop=torch.tensor(drop))
+    return {"points": torch.tensor(np.stack([x, y], -1), dtype=torch.float32),
+            "d0": torch.tensor(np.asarray(jax.random.uniform(k_d, (F * M,)))),
+            "drop": torch.tensor(drop)}
 
 
 def jax_tree(flat):
@@ -102,11 +104,12 @@ def init_frames_3(monkeypatch):
                             lambda F, M, S, init_frames=8, orig=orig: orig(F, M, S, 3))
 
 
-def run_both(structure_only: bool):
+def run_both(structure_only: bool, strategy: str = "RANDOM"):
     """(jax: loss, metrics, traj, grads; port: loss, metrics, traj, nets)
     of one clip from init_networks' weights (seed 0, carried to JAX by
-    params_to_jax) and key KEY's draws."""
-    jcfg, cfg = JConfig(**CFG_KW), Config(**CFG_KW)
+    params_to_jax) and key KEY's draws, under a CENTROID_SEL_STRAT."""
+    kw = dict(CFG_KW, CENTROID_SEL_STRAT=strategy)
+    jcfg, cfg = JConfig(**kw), Config(**kw)
     images, poses, disps, intr = tiny_clip()
     state = init_networks(cfg, torch.Generator().manual_seed(0)).state_dict()
     jparams = jax_tree(params_to_jax(state))
@@ -124,7 +127,8 @@ def run_both(structure_only: bool):
     nets.load_state_dict(state)
     t = lambda a: torch.as_tensor(a)
     traj = tvonet.vo_forward(nets, cfg, t(images), t(poses), t(disps), t(intr),
-                             jax_draws(key), STEPS=STEPS, structure_only=structure_only)
+                             jax_draws(key, strategy=strategy), STEPS=STEPS,
+                             structure_only=structure_only)
     loss, m = clip_loss(traj, t(poses), P, structure_only=structure_only)
     loss.backward()
     return dict(loss=float(jl), metrics={k: float(v) for k, v in jm.items()}, traj=jtraj,
