@@ -23,8 +23,10 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    segsum_triplet (the triplet BA's [1024, 26] into 512 depths), bit for bit,
    and spd_triplet (n = 24: the identity system bit for bit, a random one
    within 1e-4); and the training path's: corr_bwd, the correlation's
-   backward kernel, at the last unroll step's 18000 edges (bf16 and f32
-   features, within an ulp of the plain version), segsum_train (BA's
+   backward kernels (patch gradients, then the maps), at the last unroll
+   step's 18000 edges (bf16 and f32 features: the maps torch.equal to the
+   plain version on the CPU, d gmap within an ulp of it, a second launch
+   bit for bit the first), segsum_train (BA's
    [18000, 92] into 1200 depths, forward bit for bit, backward the gather)
    and spd_train (n = 90, forward and backward)). Print the error and the
    median time of the kernel, the plain
@@ -91,7 +93,9 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    snapshot loading into load_networks. Then one structure-only and one
    full step through make_train_step at that shape, timed by phase
    (forward, backward, optimizer) with their peak memory, one more under
-   the profiler (top 15), and 20 steps on one fixed small clip
+   the profiler (top 15), two from one state and one draw (whether their
+   gradients and parameters repeat bit for bit printed, not gated), and
+   20 steps on one fixed small clip
    (tests/test_train.py's configuration), whose loss must fall below 0.7x
    its start.
 9. Export and the user entry points at full width (config/default.yaml,
@@ -125,7 +129,8 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    round through gba and dist_gba timed in turn; dist_ba_delta
    at the main path's last BA, bit for bit ba_delta with the SPD kernel
    launched; one step of apps/train.py --mesh 1,1 at phase 8's shape (finite
-   loss; its parameters' difference from a step without a mesh printed). The
+   loss; its parameters' difference from a step without a mesh printed
+   beside the 1.53e-4 that a backward with f32 atomics gave). The
    group is destroyed at the end.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -134,6 +139,7 @@ the rest of the repository; without either it exits nonzero and prints
 no result.
 """
 
+import copy
 import gc
 import json
 import os
@@ -197,6 +203,11 @@ def alternating_ms(fns, reps, warmup=2):
 # (phase 7) was incomplete in 7 of 17 attempts, three times in a row once,
 # and a 20-event one came back empty
 PROFILE_ATTEMPTS = 8
+# A spin kernel (torch.cuda._sleep, ~1 ms, not counted) that starts each
+# profile: late in phase 2 on an H100 a profile of 20 segment sums kept 19
+# of them in all 8 attempts, in two runs; with the spin kernel first it kept
+# all 20 (spin kernels at the end of the profile changed nothing)
+PROFILE_HEAD_CYCLES = 2_000_000
 
 
 def device_ms(fn, reps, warmup=2, mixed=False):
@@ -223,11 +234,14 @@ def device_ms(fn, reps, warmup=2, mixed=False):
 
     def profiled(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PROFILE_HEAD_CYCLES)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        return sum(e.count for e in evs), sum(e.self_device_time_total for e in evs)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+        return (sum(e.count for e in evs), sum(e.self_device_time_total for e in evs),
+                {e.key[:48]: e.count for e in evs})
 
     for _ in range(warmup):
         fn()
@@ -238,11 +252,12 @@ def device_ms(fn, reps, warmup=2, mixed=False):
     launched = sum(kernels.LAUNCHES.values()) - before
     for _ in range(PROFILE_ATTEMPTS):
         want = reps * (profiled(1)[0] if mixed or not launched else launched)
-        count, us = profiled(reps)
+        count, us, names = profiled(reps)
         if (count >= want if mixed else count == want) and us > 0:
             return us / 1e3 / reps
         print(f"device_ms: the profiler kept {count} kernel events of the {want} launched "
-              f"({us / 1e3:.4f} ms of device time); this profile is not used")
+              f"({us / 1e3:.4f} ms of device time; by kernel {names}); this profile is not used")
+        time.sleep(0.5)
     raise RuntimeError(f"the profiler kept every kernel event in none of {PROFILE_ATTEMPTS} "
                        "profiles")
 
@@ -444,7 +459,9 @@ def train_corr_case(torch, g, dtype):
     two maps of F frames, patch rows kk = every patch once per target
     frame, coords of patches 1 px apart around centres over the map and 8
     px past its borders (3-6 px apart on 5% of the edges), 3% of the edges
-    invalid, and the incoming gradient [E, 9, 128]."""
+    invalid, and the incoming gradient [E, 9, 128]; the orders as the
+    unroll passes them: kk's sorted on the device, jj's stable argsort
+    built on the host (vonet.step_tensors)."""
     dev = torch.device("cuda")
     E, F, M, H, W, C = TRAIN_E, TRAIN_F, TRAIN_M, TRAIN_H, TRAIN_W, TRAIN_C
     gmap = torch.randn((F * M, C, 3, 3), generator=g, device=dev).to(dtype)
@@ -464,14 +481,16 @@ def train_corr_case(torch, g, dtype):
     valid = torch.rand(E, generator=g, device=dev) > 0.03
     gout = torch.randn((E, 9, 128), generator=g, device=dev).to(torch.bfloat16)
     order = torch.argsort(kk, stable=True).to(torch.int32)
-    return gout, gmap, fmap1, fmap2, coords, kk, jj, valid, order
+    jj_order = torch.from_numpy(np.argsort(jj.cpu().numpy(), kind="stable").astype(np.int32))
+    return gout, gmap, fmap1, fmap2, coords, kk, jj, valid, order, jj_order.to(dev)
 
 
 def train_kernels(torch, g):
     """The training path's kernels at its shapes (phase 8's last unroll
-    step): corr_bwd against corr_backward_plain (bf16 and f32 features),
-    and the forward plus backward of BA's segment sum and of the pose
-    solve at n = 6 F = 90."""
+    step): corr_bwd against corr_backward_plain on the CPU (bf16 and f32
+    features; the maps bit for bit, and two launches bit for bit), and
+    the forward plus backward of BA's segment sum and of the pose solve at
+    n = 6 F = 90."""
     from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
     from dpvo_tpu_torch.ba.spd_solve import spd_solve, spd_solve_plain
     from dpvo_tpu_torch.ops.corr import corr_backward_plain
@@ -482,40 +501,52 @@ def train_kernels(torch, g):
     for dtype in (torch.float32, torch.bfloat16):
         args = train_corr_case(torch, g, dtype)
         got = corr_backward(*args)
-        want = corr_backward_plain(*args[:-1])
+        want = corr_backward_plain(*(a.cpu() for a in args[:8]))
         torch.cuda.synchronize()
         errs = []
         for name, a, b in zip(("gmap", "fmap1", "fmap2"), got, want):
+            a, b = a.cpu(), b
+            equal = torch.equal(a, b)
             a, b = a.float(), b.float()
-            # f32 sums in another order (atomics into the maps), then, for
-            # bf16 features, one rounding of each to bf16: an ulp of the value
+            # d gmap: f32 sums in another order (registers against the plain
+            # version's einsum), then, for bf16 features, one rounding to
+            # bf16: an ulp of the value. The maps: bit for bit (the map
+            # kernel sums in the plain version's order, with its roundings)
             ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
             tol = ulp * torch.maximum(a.abs(), b.abs()) + 1e-5 * b.abs().max()
             err = (a - b).abs()
             errs.append(err.max().item())
             print(f"corr_bwd ({str(dtype)[6:]}): d {name} max_abs_err {err.max().item():.4g} "
                   f"(max |value| {b.abs().max().item():.4g}), beyond tolerance "
-                  f"{int((err > tol).sum())}")
-            if (err > tol).any():
+                  f"{int((err > tol).sum())}, torch.equal to the CPU's plain version {equal}")
+            if (err > tol).any() or (name != "gmap" and not equal):
                 raise AssertionError(f"corr_bwd disagrees with its plain version ({name}, {dtype})")
         again = corr_backward(*args)
-        print(f"corr_bwd ({str(dtype)[6:]}): a second launch bit for bit equal: d gmap "
-              f"{torch.equal(again[0], got[0])}, d fmaps {torch.equal(again[1], got[1])} "
-              f"{torch.equal(again[2], got[2])} (atomics: not required)")
-    gout, gmap, fmap1, fmap2, coords, kk, jj, valid, order = args
+        repeat = [torch.equal(a, b) for a, b in zip(again, got)]
+        print(f"corr_bwd ({str(dtype)[6:]}): a second launch bit for bit equal (d gmap, d fmap1, "
+              f"d fmap2): {repeat}")
+        if not all(repeat):
+            raise AssertionError(f"corr_bwd: a second launch differs ({dtype})")
+    gout, gmap, fmap1, fmap2, coords, kk, jj, valid, order, _ = args
     E, C = TRAIN_E, TRAIN_C
-    # bytes it must move: g, the features, coords and int32/bool indices read
-    # once; the f32 map gradients and the per-edge patch gradients written
-    # once; the dots: per edge and level 9 pixels x 64 positions x C, twice
-    # (d f1 and d fmap), on bf16 operands: at the bf16 rate, as corr's row
-    nbytes = (gout.numel() * 2 + (gmap.numel() + fmap1.numel() + fmap2.numel()) * 2
-              + coords.numel() * 4 + E * 9 + (fmap1.numel() + fmap2.numel()) * 4
-              + E * C * 9 * 4)
+    # bytes the function must move: g, the features, coords and int32/bool
+    # indices read once, the three gradients written once in the features'
+    # dtype (bf16); the dots: per edge and level 9 pixels x 64 positions x C,
+    # twice (d f1 and d fmap), on bf16 operands: at the bf16 rate, as corr's
+    # row. The one-kernel backward's count charged f32 map buffers and the
+    # f32 per-edge patch gradients (that kernel's writes), printed beside it
+    feats = gmap.numel() + fmap1.numel() + fmap2.numel()
+    nbytes = gout.numel() * 2 + feats * 2 + coords.numel() * 4 + E * 9 + feats * 2
+    old_bytes = (gout.numel() * 2 + feats * 2 + coords.numel() * 4 + E * 9
+                 + (fmap1.numel() + fmap2.numel()) * 4 + E * C * 9 * 4)
     flops = int(valid.sum()) * 2 * 9 * 64 * C * 2 * 2
+    print(f"corr_bwd bound: {bound(nbytes, flops, PEAK_BF16)[0]:.4f} ms ({nbytes / 1e6:.1f} MB; "
+          f"the one-kernel design's count {bound(old_bytes, flops, PEAK_BF16)[0]:.4f} ms, "
+          f"{old_bytes / 1e6:.1f} MB)")
     call = lambda: corr_backward(*args)
     out["corr_bwd"] = dict(max_abs_err=max(errs), ms=cuda_ms(call, 10),
                            device_ms=device_ms(call, 10, mixed=True),
-                           plain_ms=cuda_ms(lambda: corr_backward_plain(*args[:-1]), 2, warmup=1),
+                           plain_ms=cuda_ms(lambda: corr_backward_plain(*args[:8]), 2, warmup=1),
                            library_ms=None, bound=bound(nbytes, flops, PEAK_BF16))
 
     # BA's depth reduction at the training shape: [E, 6F + 2] f32 into F*M
@@ -1938,6 +1969,22 @@ def phase_training(torch, kernels):
         wall = (time.perf_counter() - t0) * 1e3
     _print_profile(prof, wall, 1, top=15, unit="train step")
 
+    # two full steps from one state and one draw: printed, not gated (the
+    # unroll keeps other nondeterministic sums, ROADMAP.md section 3)
+    runs = []
+    for _ in range(2):
+        n2, s2, m2 = step(copy.deepcopy(nets), copy.deepcopy(opt_state), batch,
+                          torch.Generator().manual_seed(4))
+        runs.append((float(m2["loss"]), {k: torch.zeros_like(p) if p.grad is None else p.grad
+                                         for k, p in n2.named_parameters()},
+                     n2.state_dict()))
+    (la, ga, pa), (lb, gb, pb) = runs
+    print(f"training: two steps from one state and one draw: losses {la!r} {lb!r}; gradient "
+          f"leaves bit for bit equal {sum(torch.equal(v, gb[k]) for k, v in ga.items())} of "
+          f"{len(ga)}, parameter tensors {sum(torch.equal(v, pb[k]) for k, v in pa.items())} of "
+          f"{len(pa)}")
+    del runs, ga, gb, pa, pb
+
     # the overfit check: one fixed small clip, constant-lr AdamW, f32
     small = Config(PATCHES_PER_FRAME=4, DIM=32, FDIM=16, MIXED_PRECISION=False)
     HT, WD, F = 64, 96, 5
@@ -2402,7 +2449,8 @@ def phase_gradient_bias_parallel(torch, kernels, smi, main_ate, stream):
                  for k, a in nets["mesh"].state_dict().items())
     print(f"phase 10, train --mesh 1,1: loss {row['loss']:.5g} gnorm {row['gnorm']:.5g} "
           f"({sec:.1f} s with set-up); largest parameter difference from the step without a "
-          f"mesh {dparam:.3g} (corr_bwd's f32 atomics: no bit equality); launches "
+          f"mesh {dparam:.3g} (1.53e-4 on an H100 when corr_bwd summed the maps with f32 "
+          f"atomics); launches "
           f"{launches['mesh_train']}")
     if not np.isfinite(row["loss"]):
         raise AssertionError("train --mesh 1,1: the loss is not finite")

@@ -244,7 +244,7 @@ def _mesh(spec: str, device: torch.device):
     from dpvo_tpu_torch.parallel.multihost import init_distributed
 
     nd, ne = (int(x) for x in spec.split(","))
-    init_distributed(backend="gloo" if device.type == "cpu" else None)
+    init_distributed(backend="gloo" if device.type == "cpu" else "nccl")
     return make_mesh(nd, ne, device_type=device.type)
 
 

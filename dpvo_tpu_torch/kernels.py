@@ -42,9 +42,12 @@ _SIGNATURES = {
     # gmap, fmap1, fmap2, coords, ii1, jj1, valid, out,
     # E, Np, mem, C, H1, W1, H2, W2, is_bf16, clamp, stream
     "dpvo_corr_features": [_VP] * 8 + [_I] * 10 + [_VP],
-    # g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, df1, dfm1, dfm2,
+    # g, fmap1, fmap2, coords, ii1, jj1, valid, df1, wins, boxes,
     # E, Np, mem, C, H1, W1, H2, W2, feat_bf16, g_bf16, stream
-    "dpvo_corr_backward": [_VP] * 11 + [_I] * 10 + [_VP],
+    "dpvo_corr_backward": [_VP] * 10 + [_I] * 10 + [_VP],
+    # g, gmap, ii1, jj1_order, starts, wins, boxes, dfm1, dfm2,
+    # mem, C, H1, W1, H2, W2, feat_bf16, g_bf16, stream
+    "dpvo_corr_backward_maps": [_VP] * 9 + [_I] * 8 + [_VP],
     # f1, fmap, jj, valid, corner y, corner x, out, E, mem, H, W, C, stream
     "dpvo_corr_window": [_VP] * 7 + [_I] * 5 + [_VP],
     # f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf, out, E, mem, H, W, C, stream

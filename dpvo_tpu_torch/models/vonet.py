@@ -100,7 +100,8 @@ def step_tensors(st: StepTopo, device) -> Dict[str, torch.Tensor]:
     """A step's index arrays on the device (int32, as the kernels take
     them; ``sup`` int64), with the host's stable sort orders: kk's (BA's
     depth reduction, SoftAgg by patch and the correlation backward's gmap
-    rows; kk_seg is kk's dense rank, so it sorts alike) and ij_seg's."""
+    rows; kk_seg is kk's dense rank, so it sorts alike), ij_seg's and jj's
+    (the correlation backward's walk over each frame's edges)."""
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device).to(torch.int32)
     return dict(
         kk=i32(st.kk), jj=i32(st.jj), ii=i32(st.ii), kk_seg=i32(st.kk_seg),
@@ -110,6 +111,7 @@ def step_tensors(st: StepTopo, device) -> Dict[str, torch.Tensor]:
         sup=torch.as_tensor(st.sup, device=device),
         kk_order=i32(np.argsort(st.kk, kind="stable")),
         ij_order=i32(np.argsort(st.ij_seg, kind="stable")),
+        jj_order=i32(np.argsort(st.jj, kind="stable")),
     )
 
 
@@ -213,7 +215,8 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
 
             coords = pops.transform(Gs, patches, intr_all, ii, jj, kk)
             corr = corr_features_train(gmap, pyr1, pyr2, coords.to(torch.float32).contiguous(),
-                                       kk, jj, valid, t["kk_order"], radius=cfg.CORR_RADIUS)
+                                       kk, jj, valid, t["kk_order"], t["jj_order"],
+                                       radius=cfg.CORR_RADIUS)
             corr = corr.reshape(Es, -1).to(fdt)
 
             net, delta, weight = _apply(

@@ -181,7 +181,15 @@ def corr_backward_plain(g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: 
 
     Edges with ``valid`` false contribute nothing, and neither does a
     pixel with non-finite coordinates. Each gradient in its feature's
-    dtype."""
+    dtype.
+
+    The summation order, which the card's map kernel follows so that its
+    d fmap1 / d fmap2 equal these bit for bit: G is 0 plus the four tap
+    terms in the order of the four ``+=`` below, each (wy * wx) * g in
+    f32; each map position adds its products G * f1 (rounded, then added)
+    in ascending (edge, pixel) order from +0.0, as ``index_add_`` adds
+    rows in index order on the CPU; one rounding to the feature dtype at
+    the end."""
     E, P = coords.shape[0], coords.shape[1]
     P2, D = P * P, 2 * radius + 2
     d = D - 1

@@ -19,10 +19,12 @@ kernel.
 
 Training differentiates the exact windows (``CorrFeatures``,
 ``corr_features_train``): the backward pass is ``csrc/corr_bwd.cu``
-(``corr_backward``) on the card and ``ops/corr.py:corr_backward_plain``
-on the CPU; the patch features' gradient is reduced into the gmap rows by
-the sorted segment sum. The JAX package trains through XLA's autodiff of
-``corr_features_xla`` (``dpvo_tpu/ops/corr.py:287``).
+(``corr_backward``: two kernels, no atomics; the maps' gradients bit for
+bit the plain version's on the CPU) on the card and
+``ops/corr.py:corr_backward_plain`` on the CPU; the patch features'
+gradient is reduced into the gmap rows by the sorted segment sum. The
+JAX package trains through XLA's autodiff of ``corr_features_xla``
+(``dpvo_tpu/ops/corr.py:287``).
 """
 
 from __future__ import annotations
@@ -107,17 +109,23 @@ def corr_features(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius: int = 3,
 
 
 def corr_backward(g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, ii1_order=None,
-                  radius: int = 3):
+                  jj1_order=None, radius: int = 3):
     """(d gmap, d fmap1, d fmap2) of the exact-window correlation from g =
     d out [E, P*P, 2*(2r+2)^2]: ``corr_backward_plain`` for CPU tensors;
-    on the card the backward kernel, whose per-edge patch gradients go
-    into the gmap rows through the sorted segment sum (``ii1_order``: a
-    stable argsort of ii1, int32; sorted on the device when not given).
-    Each gradient in its feature's dtype; the maps' are summed with f32
-    atomics, so their last bits vary from run to run."""
+    on the card the backward kernels (``csrc/corr_bwd.cu``), each
+    gradient in its feature's dtype and a fixed function of the inputs.
+    The per-edge patch gradients go into the gmap rows through the sorted
+    segment sum (``ii1_order``: a stable argsort of ii1); the map kernel
+    walks each slot's edges in ``jj1_order`` (a stable argsort of jj1), so
+    that the maps are bit for bit ``corr_backward_plain``'s on the CPU.
+    Each order int32 [E], sorted on the device when not given."""
+    E, P = coords.shape[0], coords.shape[1]
+    for name, order in (("ii1_order", ii1_order), ("jj1_order", jj1_order)):
+        if order is not None and (order.dtype != torch.int32 or order.shape != (E,)):
+            raise ValueError(f"corr_backward: {name} must be int32 [{E}], got {order.dtype} "
+                             f"{tuple(order.shape)}")
     if coords.device.type == "cpu":
         return corr_backward_plain(g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius)
-    E, P = coords.shape[0], coords.shape[1]
     Np, C = gmap.shape[0], gmap.shape[1]
     mem, H1, W1, _ = fmap1.shape
     _, H2, W2, _ = fmap2.shape
@@ -138,24 +146,47 @@ def corr_backward(g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, ii1_order=None
                          f"{ii1.dtype}/{jj1.dtype}/{valid.dtype}")
     if ii1.shape != (E,) or jj1.shape != (E,) or valid.shape != (E,):
         raise ValueError("corr_backward: ii1/jj1/valid must be [E]")
+    if C % 2 or min(H1, W1, H2, W2) <= 0 or max(H1, H2, W1, W2) > 30000:
+        raise ValueError(f"corr_backward: C {C} must be even and the maps {H1}x{W1}, {H2}x{W2} "
+                         f"within 1 ... 30000 a side")
     g = g.contiguous()
-    kernels.require_cuda("corr_backward", g, gmap, fmap1, fmap2, coords, ii1, jj1, valid)
+    orders = [o for o in (ii1_order, jj1_order) if o is not None]
+    kernels.require_cuda("corr_backward", g, gmap, fmap1, fmap2, coords, ii1, jj1, valid, *orders)
+    for t in (fmap1, fmap2):
+        if t.data_ptr() % 16:
+            raise ValueError("corr_backward: feature maps must be 16-byte aligned")
     lib = kernels.load()
     dev = coords.device
+    if jj1_order is None:
+        jj1_order = torch.argsort(jj1, stable=True).to(torch.int32)
+    # slot f's edges: jj1_order[starts[f] : starts[f + 1]]
+    starts = torch.searchsorted(jj1[jj1_order], torch.arange(mem + 1, dtype=torch.int32,
+                                                              device=dev), out_int32=True)
     df1 = torch.empty((E, C * P * P), dtype=torch.float32, device=dev)
-    dfm1 = torch.zeros(fmap1.shape, dtype=torch.float32, device=dev)
-    dfm2 = torch.zeros(fmap2.shape, dtype=torch.float32, device=dev)
-    rc = lib.dpvo_corr_backward(
-        g.data_ptr(), gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(), coords.data_ptr(),
-        ii1.data_ptr(), jj1.data_ptr(), valid.data_ptr(), df1.data_ptr(), dfm1.data_ptr(),
-        dfm2.data_ptr(), E, Np, mem, C, H1, W1, H2, W2, int(gmap.dtype == torch.bfloat16),
-        int(g.dtype == torch.bfloat16), kernels.stream_ptr(coords))
-    kernels.check("corr_backward", rc)
-    kernels.count("corr_bwd")
+    wins = torch.empty((E, 2, P * P, 4), dtype=torch.int32, device=dev)
+    boxes = torch.empty((E, 2, 4), dtype=torch.int16, device=dev)
+    dfm1 = torch.empty(fmap1.shape, dtype=fmap1.dtype, device=dev)
+    dfm2 = torch.empty(fmap2.shape, dtype=fmap2.dtype, device=dev)
+    feat_bf16, g_bf16 = int(gmap.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16)
+    stream = kernels.stream_ptr(coords)
+    if E:
+        rc = lib.dpvo_corr_backward(
+            g.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(), coords.data_ptr(), ii1.data_ptr(),
+            jj1.data_ptr(), valid.data_ptr(), df1.data_ptr(), wins.data_ptr(), boxes.data_ptr(),
+            E, Np, mem, C, H1, W1, H2, W2, feat_bf16, g_bf16, stream)
+        kernels.check("corr_backward", rc)
+        kernels.count("corr_bwd")
+    if mem:
+        rc = lib.dpvo_corr_backward_maps(
+            g.data_ptr(), gmap.data_ptr(), ii1.data_ptr(), jj1_order.data_ptr(),
+            starts.data_ptr(), wins.data_ptr(), boxes.data_ptr(), dfm1.data_ptr(),
+            dfm2.data_ptr(), mem, C, H1, W1, H2, W2, feat_bf16, g_bf16, stream)
+        kernels.check("corr_backward", rc)
+        kernels.count("corr_bwd")
     if ii1_order is None:
         ii1_order = torch.argsort(ii1, stable=True).to(torch.int32)
     dgmap = segment_sum(df1, ii1, ii1_order, Np)
-    return dgmap.reshape(gmap.shape).to(gmap.dtype), dfm1.to(fmap1.dtype), dfm2.to(fmap2.dtype)
+    return dgmap.reshape(gmap.shape).to(gmap.dtype), dfm1, dfm2
 
 
 class CorrFeatures(torch.autograd.Function):
@@ -163,28 +194,30 @@ class CorrFeatures(torch.autograd.Function):
     gradients of gmap, fmap1 and fmap2 (``corr_backward``)."""
 
     @staticmethod
-    def forward(ctx, gmap, fmap1, fmap2, coords, ii1, jj1, valid, ii1_order, radius):
+    def forward(ctx, gmap, fmap1, fmap2, coords, ii1, jj1, valid, ii1_order, jj1_order, radius):
         ctx.save_for_backward(gmap, fmap1, fmap2, coords, ii1, jj1, valid)
-        ctx.ii1_order, ctx.radius = ii1_order, radius
+        ctx.orders, ctx.radius = (ii1_order, jj1_order), radius
         return corr_features(gmap, fmap1, fmap2, coords, ii1, jj1, valid, radius)
 
     @staticmethod
     def backward(ctx, g):
         if not any(ctx.needs_input_grad[:3]):
-            return (None,) * 9
-        grads = corr_backward(g, *ctx.saved_tensors, ctx.ii1_order, ctx.radius)
+            return (None,) * 10
+        grads = corr_backward(g, *ctx.saved_tensors, *ctx.orders, ctx.radius)
         return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad)) \
-            + (None,) * 6
+            + (None,) * 7
 
 
 def corr_features_train(gmap, fmap1, fmap2, coords, ii1, jj1, valid, ii1_order=None,
-                        radius: int = 3):
+                        jj1_order=None, radius: int = 3):
     """The training correlation: ``corr_features``' exact windows,
-    differentiable in the features (``CorrFeatures``). The coordinates get
+    differentiable in the features (``CorrFeatures``; the orders as
+    ``corr_backward`` takes them). The coordinates get
     no gradient (the training unroll stops it, as ``vo_forward`` does), so
     coordinates that require one are refused rather than given a wrong
     one."""
     if coords.requires_grad:
         raise ValueError("corr_features_train: the correlation has no gradient for its "
                          "coordinates; detach them")
-    return CorrFeatures.apply(gmap, fmap1, fmap2, coords, ii1, jj1, valid, ii1_order, radius)
+    return CorrFeatures.apply(gmap, fmap1, fmap2, coords, ii1, jj1, valid, ii1_order, jj1_order,
+                              radius)

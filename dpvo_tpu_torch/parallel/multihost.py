@@ -26,7 +26,7 @@ ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None, process_id: Optional[int] = None,
-                     backend: Optional[str] = None, timeout_s: float = 600.0):
+                     backend: str = "nccl", timeout_s: float = 600.0):
     """Join this process to the process group. No-op if it has joined.
 
     coordinator_address: ``host:port`` of rank 0's store (TCP), or an
@@ -34,12 +34,15 @@ def init_distributed(coordinator_address: Optional[str] = None,
     size; process_id: this process's rank. Each defaults to torchrun's
     environment (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``);
     what is neither given nor set raises, naming it. backend: ``nccl``
-    where a CUDA device is available, else ``gloo``; a named or defaulted
-    ``nccl`` that this build of torch lacks raises (no fallback to gloo).
-    With NCCL the process takes the card ``LOCAL_RANK`` (else its rank)
-    modulo the card count."""
+    raises where no CUDA device is available or this build of torch lacks
+    NCCL (no fallback); ``gloo``, the CPU's, only when named. With NCCL
+    the process takes the card ``LOCAL_RANK`` (else its rank) modulo the
+    card count."""
     if dist.is_initialized():
         return
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("init_distributed: backend nccl needs a CUDA device and none is "
+                           "available; pass backend='gloo' to join a group on the CPU")
     missing = [k for k, v in (("MASTER_ADDR", coordinator_address),
                               ("MASTER_PORT", coordinator_address),
                               ("WORLD_SIZE", num_processes), ("RANK", process_id))
@@ -55,8 +58,6 @@ def init_distributed(coordinator_address: Optional[str] = None,
         init_method = f"tcp://{coordinator_address}"
     world = int(os.environ["WORLD_SIZE"] if num_processes is None else num_processes)
     rank = int(os.environ["RANK"] if process_id is None else process_id)
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
         if not dist.is_nccl_available():
             raise RuntimeError("init_distributed: backend nccl, but this torch has no NCCL")

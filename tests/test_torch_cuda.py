@@ -494,10 +494,12 @@ def test_pgo_on_the_card_matches_the_cpu(dev):
     assert np.abs(card - cpu).max() <= PGO_CARD_ATOL
 
 
-def _train_corr_case(dtype, E, F=15, M=80, H=120, W=160, C=128, seed=0):
+def _train_corr_case(dtype, E, F=15, M=80, H=120, W=160, C=128, seed=0, spread_share=0.05,
+                     spread_px=(3.0, 6.0), jj=None):
     """corr_bwd's inputs at the training shape: patches 1 px apart around
-    centres over the map and 8 px past its borders (3-6 px apart on 5% of
-    the edges), 3% of the edges invalid."""
+    centres over the map and 8 px past its borders (spread_px apart on
+    spread_share of the edges), 3% of the edges invalid; jj random slots
+    unless given."""
     g = torch.Generator().manual_seed(seed)
     gmap = torch.randn(F * M, C, 3, 3, generator=g).to(dtype)
     f1 = torch.randn(F, H, W, C, generator=g).to(dtype)
@@ -505,14 +507,34 @@ def _train_corr_case(dtype, E, F=15, M=80, H=120, W=160, C=128, seed=0):
     ctr = torch.rand(E, 1, 1, 2, generator=g) * torch.tensor([W + 16.0, H + 16.0]) - 8
     grid = torch.stack(torch.meshgrid(torch.arange(-1.0, 2.0), torch.arange(-1.0, 2.0),
                                       indexing="ij"), -1).flip(-1)
-    spread = torch.where(torch.rand(E, 1, 1, 1, generator=g) < 0.05,
-                         3 + 3 * torch.rand(E, 1, 1, 1, generator=g), torch.ones(E, 1, 1, 1))
+    lo, hi = spread_px
+    spread = torch.where(torch.rand(E, 1, 1, 1, generator=g) < spread_share,
+                         lo + (hi - lo) * torch.rand(E, 1, 1, 1, generator=g),
+                         torch.ones(E, 1, 1, 1))
     coords = (ctr + spread * grid[None] + 0.3 * torch.randn(E, 3, 3, 2, generator=g)).contiguous()
     kk = (torch.arange(E) % (F * M)).to(torch.int32)
-    jj = torch.randint(0, F, (E,), generator=g, dtype=torch.int32)
+    rand_jj = torch.randint(0, F, (E,), generator=g, dtype=torch.int32)
+    jj = rand_jj if jj is None else jj.to(torch.int32)
     valid = torch.rand(E, generator=g) > 0.03
     gout = torch.randn(E, 9, 128, generator=g).to(torch.bfloat16)
     return gout, gmap, f1, f2, coords, kk, jj, valid
+
+
+def _check_corr_bwd(got, want, dtype):
+    """The maps torch.equal to the plain version's on the CPU (the map
+    kernel sums in its order, with its roundings); d gmap within the patch
+    gradients' tolerance: f32 sums in another order (registers against the
+    plain version's einsum), then for bf16 features one bf16 rounding."""
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for name, a, b in zip(("gmap", "fmap1", "fmap2"), got, want):
+        a = a.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name != "gmap":
+            assert torch.equal(a, b), (name, (a.float() - b.float()).abs().max())
+            continue
+        a, b = a.float(), b.float()
+        tol = ulp * torch.maximum(a.abs(), b.abs()) + 1e-5 * b.abs().max()
+        assert ((a - b).abs() <= tol).all(), (a - b).abs().max()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -520,8 +542,8 @@ def test_corr_bwd_kernel_matches_plain(dev, dtype):
     """corr_bwd at the training shape (Config()'s 80 patches, 15 frames of
     120x160 and 30x40 maps, C = 128; E = 18000, the last unroll step) against
     corr_backward_plain on the CPU: windows across the borders, spread
-    patches, invalid edges. Tolerance: f32 sums in another order (the maps'
-    by atomics), then for bf16 features one bf16 rounding of each gradient."""
+    patches, invalid edges, jj unsorted. Two launches a call (the patch
+    gradients, the maps)."""
     from dpvo_tpu_torch import kernels
     from dpvo_tpu_torch.ops.corr import corr_backward_plain
     from dpvo_tpu_torch.ops.corr_cuda import corr_backward
@@ -531,13 +553,49 @@ def test_corr_bwd_kernel_matches_plain(dev, dtype):
     before = kernels.LAUNCHES["corr_bwd"]
     got = corr_backward(*(a.to(dev) for a in args))
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["corr_bwd"] == before + 1
-    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-    for a, b in zip(got, want):
-        a, b = a.cpu().float(), b.float()
-        assert a.dtype == b.dtype and a.shape == b.shape
-        tol = ulp * torch.maximum(a.abs(), b.abs()) + 1e-5 * b.abs().max()
-        assert ((a - b).abs() <= tol).all(), (a - b).abs().max()
+    assert kernels.LAUNCHES["corr_bwd"] == before + 2
+    _check_corr_bwd(got, want, dtype)
+
+
+def test_corr_bwd_repeats_bit_for_bit(dev):
+    """Two launches on the same inputs give the same bits, all three
+    gradients (no atomics)."""
+    from dpvo_tpu_torch.ops.corr_cuda import corr_backward
+
+    args = [a.to(dev) for a in _train_corr_case(torch.bfloat16, 18000, seed=1)]
+    first = corr_backward(*args)
+    again = corr_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("case", ["empty_slot", "modulo_jj", "spread", "host_orders"])
+def test_corr_bwd_maps_equal_plain(dev, case):
+    """The maps bit for bit the plain version's: a slot with no edges (its
+    maps all zeros), jj = e % F as chip_smoke's case, every patch spread
+    4-12 px (windows across many tiles), and the orders shipped from the
+    host (int32 stable argsorts) in place of the device's sort."""
+    from dpvo_tpu_torch.ops.corr import corr_backward_plain
+    from dpvo_tpu_torch.ops.corr_cuda import corr_backward
+
+    E, F, M = 3000, 5, 40
+    kw = dict(E=E, F=F, M=M, H=64, W=96, C=128, seed=2)
+    if case == "empty_slot":
+        kw["jj"] = torch.tensor([0, 1, 3, 4])[torch.arange(E) % 4]
+    elif case == "modulo_jj":
+        kw["jj"] = torch.arange(E) % F
+    elif case == "spread":
+        kw.update(spread_share=1.0, spread_px=(4.0, 12.0))
+    args = _train_corr_case(torch.bfloat16, **kw)
+    want = corr_backward_plain(*args)
+    orders = ()
+    if case == "host_orders":
+        orders = tuple(torch.argsort(a, stable=True).to(torch.int32).to(dev) for a in args[5:7])
+    got = corr_backward(*(a.to(dev) for a in args), *orders)
+    torch.cuda.synchronize()
+    _check_corr_bwd(got, want, torch.bfloat16)
+    if case == "empty_slot":
+        assert not got[1][2].any() and not got[2][2].any()
+        assert got[1][0].any() and got[2][0].any()
 
 
 def test_corr_bwd_invalid_and_offmap_edges_add_nothing(dev):

@@ -318,3 +318,14 @@ def test_mesh_and_init_distributed(monkeypatch):
             process_local_batch(3, 2)
     finally:
         dist.destroy_process_group()
+
+
+def test_init_distributed_defaults_to_nccl_and_raises_without_a_card(monkeypatch):
+    """With no backend named the group is NCCL's: without a card that
+    raises, naming gloo, and joins nothing (no silent CPU fallback)."""
+    from dpvo_tpu_torch.parallel.multihost import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="backend nccl needs a CUDA device.*gloo"):
+        init_distributed("localhost:1", 1, 0)
+    assert not dist.is_initialized()
