@@ -18,7 +18,8 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    (row segsum_gba) the seven f32 reductions of a global-BA iteration at
    phase 6's size (pose blocks [4E, 36] into nfree^2 segments, kpairs
    [KP, 36], Fe [R, 6], ...), bit for bit against the plain version on the
-   CPU; SPD solve: n = 96, forward and backward; and classic loop closure's
+   CPU and a second launch bit for bit the first, each with its longest
+   run beside ba/segsum.CHUNK and its device time; SPD solve: n = 96, forward and backward; and classic loop closure's
    call sites: segsum_pgo (the PGO's H [4R, 49] and g [2R, 7] at 60 poses),
    segsum_triplet (the triplet BA's [1024, 26] into 512 depths), bit for bit,
    and spd_triplet (n = 24: the identity system bit for bit, a random one
@@ -133,12 +134,21 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    beside the 1.53e-4 that a backward with f32 atomics gave). The
    group is destroyed at the end.
 
+Segment-sum runs (segsum_runs): the second xla run of phase 4, the tiny
+tracker's card runs of phase 5, the second loop-closure run of phase 6,
+the second inline run of phase 7, and phase 8's two steps from one state
+and fixed-clip overfit print each call site's longest run and how far into
+a run its last nonzero row lies; a site other than the global BA's with a
+nonzero row past ba/segsum.CHUNK fails the run (there the chunked order
+would leave the sequential sum's bits).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs a CUDA device and
 the rest of the repository; without either it exits nonzero and prints
 no result.
 """
 
+import contextlib
 import copy
 import gc
 import json
@@ -208,6 +218,45 @@ PROFILE_ATTEMPTS = 8
 # of them in all 8 attempts, in two runs; with the spin kernel first it kept
 # all 20 (spin kernels at the end of the profile changed nothing)
 PROFILE_HEAD_CYCLES = 2_000_000
+# A host pause at each end of a profile, so that the kernels lie well inside
+# its window even where the profiler's device clock and the host's part by
+# more than the spin kernel covers: with the spin kernel alone, a profile of
+# 20 global-BA segment sums in phase 2 kept all 20 in none of 8 attempts on
+# an H100 (and 5 of 20 in another run), where the same profile early in a
+# fresh process keeps them all
+PROFILE_MARGIN_S = 0.02
+
+
+def queued_ms(fn, reps, attempts=4):
+    """Device time per call of fn() (which must not wait for the card): an
+    event pair around reps calls that the host queues behind a spin kernel,
+    so the card runs them back to back. It counts the short gaps between
+    kernels beside their run time. The spin is sized at twice the host's
+    time for the calls and lengthened until the first event was still
+    pending when the host had queued the last call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(host_s, 1e-3) * 4e9)  # ~2x the host's time at the card's ~2 GHz
+    for _ in range(attempts):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    raise RuntimeError(f"queued_ms: the card caught up with the host in all {attempts} attempts")
 
 
 def device_ms(fn, reps, warmup=2, mixed=False):
@@ -224,8 +273,10 @@ def device_ms(fn, reps, warmup=2, mixed=False):
     whose library calls launch a varying number of kernels), at least that
     many. The profiler
     on the card sometimes drops an event (an H100 run kept 39 of 40); such
-    a profile is reported and taken again, and after PROFILE_ATTEMPTS
-    incomplete profiles this raises."""
+    a profile is reported, with where its kept kernels lie in it, and taken
+    again. After PROFILE_ATTEMPTS incomplete profiles the time comes from
+    queued_ms, and is printed as such; a ``mixed`` fn waits for the card
+    between its kernels, which queued_ms cannot time, so then this raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -234,14 +285,29 @@ def device_ms(fn, reps, warmup=2, mixed=False):
 
     def profiled(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            time.sleep(PROFILE_MARGIN_S)
             torch.cuda._sleep(PROFILE_HEAD_CYCLES)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+            host_ms = (time.perf_counter() - t0) * 1e3
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
         return (sum(e.count for e in evs), sum(e.self_device_time_total for e in evs),
-                {e.key[:48]: e.count for e in evs})
+                {e.key[:48]: e.count for e in evs}, prof, host_ms)
+
+    def kept_span(prof, host_ms):
+        kept = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not kept:
+            return f"none kept in a {host_ms:.1f} ms profile"
+        first = min(kept, key=lambda e: e.time_range.start)
+        last = max(e.time_range.end for e in kept)
+        return (f"kept kernels from {first.time_range.start / 1e3:.3f} ms (the first "
+                f"{'the spin kernel' if 'spin_kernel' in first.key else first.key[:32]}) to "
+                f"{last / 1e3:.3f} ms after the profile's start, in a {host_ms:.1f} ms profile "
+                f"with {PROFILE_MARGIN_S * 1e3:.0f} ms pauses at each end")
 
     for _ in range(warmup):
         fn()
@@ -252,14 +318,20 @@ def device_ms(fn, reps, warmup=2, mixed=False):
     launched = sum(kernels.LAUNCHES.values()) - before
     for _ in range(PROFILE_ATTEMPTS):
         want = reps * (profiled(1)[0] if mixed or not launched else launched)
-        count, us, names = profiled(reps)
+        count, us, names, prof, host_ms = profiled(reps)
         if (count >= want if mixed else count == want) and us > 0:
             return us / 1e3 / reps
         print(f"device_ms: the profiler kept {count} kernel events of the {want} launched "
-              f"({us / 1e3:.4f} ms of device time; by kernel {names}); this profile is not used")
+              f"({us / 1e3:.4f} ms of device time; by kernel {names}; "
+              f"{kept_span(prof, host_ms)}); this profile is not used")
         time.sleep(0.5)
-    raise RuntimeError(f"the profiler kept every kernel event in none of {PROFILE_ATTEMPTS} "
-                       "profiles")
+    if mixed:
+        raise RuntimeError(f"the profiler kept every kernel event in none of {PROFILE_ATTEMPTS} "
+                           "profiles")
+    ms = queued_ms(fn, reps)
+    print(f"device_ms: no complete profile in {PROFILE_ATTEMPTS}; device time from "
+          f"{reps} calls queued behind a spin kernel (event pair): {ms:.5f} ms a call")
+    return ms
 
 
 def bound(nbytes, flops, peak_flops):
@@ -345,6 +417,11 @@ def phase_kernels(torch, kernels):
     out.update(segsum_kernels(torch, g))
     out.update(train_kernels(torch, g))
     out.update(segsum_gba_kernels(torch, g))
+    from dpvo_tpu_torch.ba import segsum
+
+    runs = out["segsum_gba"]["longest_runs"]
+    print(f"segsum_gba: CHUNK {segsum.CHUNK} rows a piece; the reductions with longer runs "
+          f"(taken in pieces): {[name for name, n in runs.items() if n > segsum.CHUNK]}")
     out.update(classic_lc_kernels(torch, g))
 
     # ---- SPD solve: the n = 96 damped pose system, forward and backward ----
@@ -490,8 +567,7 @@ def train_kernels(torch, g):
     step): corr_bwd against corr_backward_plain on the CPU (bf16 and f32
     features; the maps bit for bit, and two launches bit for bit), and
     the forward plus backward of BA's segment sum and of the pose solve at
-    n = 6 F = 90."""
-    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+    n = 6 F = 90 (segsum_train_row)."""
     from dpvo_tpu_torch.ba.spd_solve import spd_solve, spd_solve_plain
     from dpvo_tpu_torch.ops.corr import corr_backward_plain
     from dpvo_tpu_torch.ops.corr_cuda import corr_backward
@@ -549,35 +625,7 @@ def train_kernels(torch, g):
                            plain_ms=cuda_ms(lambda: corr_backward_plain(*args[:8]), 2, warmup=1),
                            library_ms=None, bound=bound(nbytes, flops, PEAK_BF16))
 
-    # BA's depth reduction at the training shape: [E, 6F + 2] f32 into F*M
-    # rows, forward and backward (the gather of its gradient)
-    K, Md = 6 * TRAIN_F + 2, TRAIN_F * TRAIN_M
-    pay = torch.randn((E, K), generator=g, device=dev)
-    kd = kk[torch.randperm(E, generator=g, device=dev)]
-    kd_order = torch.argsort(kd, stable=True).to(torch.int32)
-    gy = torch.randn((Md, K), generator=g, device=dev)
-
-    def fwd_bwd():
-        p = pay.clone().requires_grad_()
-        y = segment_sum(p, kd, kd_order, Md)
-        (gp,) = torch.autograd.grad(y, p, gy)
-        return y, gp
-
-    y, gp = fwd_bwd()
-    same = torch.equal(y.cpu(), segment_sum_plain(pay.cpu(), kd.cpu(), Md)) and \
-        torch.equal(gp, gy[kd.long()])
-    print(f"segsum_train: forward bit for bit equal to the plain version, backward the gather: "
-          f"{same}")
-    if not same:
-        raise AssertionError("segsum_train: the kernel or its gradient disagrees")
-    lib = lambda: (torch.zeros((Md, K), device=dev).index_add_(0, kd.long(), pay),
-                   gy[kd.long()])
-    out["segsum_train"] = dict(
-        max_abs_err=0.0, ms=cuda_ms(fwd_bwd, 50), device_ms=device_ms(fwd_bwd, 50, mixed=True),
-        plain_ms=cuda_ms(lambda: (segment_sum_plain(pay, kd, Md), gy[kd.long()]), 10),
-        library_ms=cuda_ms(lib, 50),
-        # payload and ids read, sums written; the gradient read by id, written
-        bound=bound(E * K * 4 + E * 8 + Md * K * 4 + E * K * 4 * 2, E * K, PEAK_F32))
+    out.update(segsum_train_row(torch, g, kk))
 
     # the pose solve at n = 6 F = 90, forward and backward
     n = 6 * TRAIN_F
@@ -614,6 +662,43 @@ def train_kernels(torch, g):
         # two solves: S, y and g read, x and y_bar written, dS [n, n] written
         bound=bound((n * n + 2 * n) * 4 * 2 + n * n * 4, 2 * (n ** 3 / 3 + 2 * n * n), PEAK_F32))
     return out
+
+
+def segsum_train_row(torch, g, kk):
+    """BA's depth reduction at the training shape (row segsum_train): an
+    [E, 6F + 2] f32 payload into F*M rows by a shuffle of the patch ids kk,
+    forward and backward (the gather of its gradient), drawn from g."""
+    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+
+    dev = kk.device
+    E = kk.shape[0]
+    K, Md = 6 * TRAIN_F + 2, TRAIN_F * TRAIN_M
+    pay = torch.randn((E, K), generator=g, device=dev)
+    kd = kk[torch.randperm(E, generator=g, device=dev)]
+    kd_order = torch.argsort(kd, stable=True).to(torch.int32)
+    gy = torch.randn((Md, K), generator=g, device=dev)
+
+    def fwd_bwd():
+        p = pay.clone().requires_grad_()
+        y = segment_sum(p, kd, kd_order, Md)
+        (gp,) = torch.autograd.grad(y, p, gy)
+        return y, gp
+
+    y, gp = fwd_bwd()
+    same = torch.equal(y.cpu(), segment_sum_plain(pay.cpu(), kd.cpu(), Md)) and \
+        torch.equal(gp, gy[kd.long()])
+    print(f"segsum_train: forward bit for bit equal to the plain version, backward the gather: "
+          f"{same}")
+    if not same:
+        raise AssertionError("segsum_train: the kernel or its gradient disagrees")
+    lib = lambda: (torch.zeros((Md, K), device=dev).index_add_(0, kd.long(), pay),
+                   gy[kd.long()])
+    return {"segsum_train": dict(
+        max_abs_err=0.0, ms=cuda_ms(fwd_bwd, 50), device_ms=device_ms(fwd_bwd, 50, mixed=True),
+        plain_ms=cuda_ms(lambda: (segment_sum_plain(pay, kd, Md), gy[kd.long()]), 10),
+        library_ms=cuda_ms(lib, 50),
+        # payload and ids read, sums written; the gradient read by id, written
+        bound=bound(E * K * 4 + E * 8 + Md * K * 4 + E * K * 4 * 2, E * K, PEAK_F32))}
 
 
 # the largest global-BA round of phase 6 as its scene's topology gives it:
@@ -656,26 +741,38 @@ def gba_reductions(torch, g, dev, n=GBA_FRAMES, M=96, reach=GBA_REACH):
     }, dict(E=E, R=R, F=F, KP=KP, nfree=n)
 
 
+def longest_run(kd, Md):
+    """Rows of the longest run of ids in [0, Md) in kd (a CPU tensor)."""
+    kd = kd.long()
+    kept = kd[(kd >= 0) & (kd < Md)]
+    return int(kept.bincount().max()) if kept.numel() else 0
+
+
 def segsum_gba_kernels(torch, g):
     """The segment sum at the global BA's shapes (its own row, segsum_gba):
     each of the seven reductions of a Gauss-Newton iteration bit for bit
-    against the plain version on the CPU, with its device time; the seven
-    together against their bound and index_add_."""
+    against the plain version on the CPU, with its longest run and device
+    time; the seven together against their bound and index_add_."""
     from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
 
     calls, sizes = gba_reductions(torch, g, torch.device("cuda"))
     print("segsum_gba: the global BA's reductions at {nfree} free poses, E {E} edges, R {R} "
           "rows, F {F} entries, KP {KP} kpairs".format(**sizes))
-    err = 0.0
+    err, reductions, runs = 0.0, {}, {}
     for name, (p, kd, order, Md) in calls.items():
         got = segment_sum(p, kd, order, Md).cpu()
         want = segment_sum_plain(p.cpu(), kd.cpu(), Md)
         err = max(err, (got - want).abs().max().item())
         dms = device_ms(lambda: segment_sum(p, kd, order, Md), 20)
-        print(f"segsum_gba: {name} into {Md} segments: bit for bit equal to the plain version: "
-              f"{torch.equal(got, want)}; device time {dms:.5f} ms")
+        reductions[name], runs[name] = dms, longest_run(kd.cpu(), Md)
+        print(f"segsum_gba: {name} into {Md} segments, longest run {runs[name]} rows: bit for "
+              f"bit equal to the plain version: {torch.equal(got, want)}; device time "
+              f"{dms:.5f} ms")
         if not torch.equal(got, want):
             raise AssertionError(f"segsum kernel disagrees with its plain version at {name}")
+        again = segment_sum(p, kd, order, Md).cpu()
+        if not torch.equal(again, got):
+            raise AssertionError(f"segsum_gba: a second launch differs at {name}")
     run = lambda: [segment_sum(*c) for c in calls.values()]
     lib_args = [(p, torch.where((kd < 0) | (kd >= Md), Md, kd).long(), Md)
                 for p, kd, _, Md in calls.values()]
@@ -683,19 +780,26 @@ def segsum_gba_kernels(torch, g):
                    for p, kd, Md in lib_args]
     t = dict(ms=cuda_ms(run, 10), library_ms=cuda_ms(lib, 10), device_ms=device_ms(run, 10),
              library_device_ms=device_ms(lib, 10))
-    print("segsum_gba: the seven calls: ms {ms:.5f} (index_add_ {library_ms:.5f}); device time "
-          "{device_ms:.5f} ({library_device_ms:.5f})".format(**t))
     # the rows of ids in [0, Md) read once with their int32 id and order,
     # the f32 outputs written once; one add per value read
     kept = [int(((kd >= 0) & (kd < Md)).sum()) for _, kd, _, Md in calls.values()]
     nbytes = sum(p.shape[0] * 8 + k * p.shape[1] * 4 + Md * p.shape[1] * 4
                  for (p, _, _, Md), k in zip(calls.values(), kept))
     flops = sum(k * p.shape[1] for (p, _, _, _), k in zip(calls.values(), kept))
+    b = bound(nbytes, flops, PEAK_F32)
+    print("segsum_gba: the seven calls: ms {ms:.5f} (index_add_ {library_ms:.5f}); device time "
+          "{device_ms:.5f} ({library_device_ms:.5f}); each a second launch bit for bit the "
+          "first".format(**t) + f"; bound {b[0]:.5f} ms ({b[1]}), "
+          f"{100 * b[0] / t['device_ms']:.1f}% of it")
+    # device_ms's measure where no profile is whole, run here every time
+    q = queued_ms(run, 10)
+    print(f"segsum_gba: the seven calls queued behind a spin kernel (queued_ms): {q:.5f} ms, "
+          f"{q / t['device_ms']:.3f}x the profiler's device time")
     return {"segsum_gba": dict(
         max_abs_err=err, ms=t["ms"], library_ms=t["library_ms"], device_ms=t["device_ms"],
         plain_ms=cuda_ms(lambda: [segment_sum_plain(p, kd, Md) for p, kd, _, Md in calls.values()],
                          2, warmup=1),
-        bound=bound(nbytes, flops, PEAK_F32))}
+        bound=b, reductions=reductions, longest_runs=runs)}
 
 
 # phase 7's keyframe count (phase 6's stream kept 60): the PGO's size there
@@ -1204,7 +1308,8 @@ def phase_corr_impls(torch, kernels):
               f"{ {k: v for k, v in launches[impl].items() if v} }")
         if impl == "xla":
             counts, undo = count_branches()
-            again = run(impl)[1]
+            with segsum_runs(torch, "phase 4, the second xla run"):
+                again = run(impl)[1]
             undo()
             n, t1, t2 = counts.tolist()
             print(f"CORR_IMPL={impl}: corr.cu's branches over the run, kernel's rule: union tile "
@@ -1381,7 +1486,8 @@ def phase_small_parity(torch):
     agrees, the feature rings moved by a keyframe cull included."""
     tracker, frames, K = small_path()
     ref = free_run(tracker("cpu"), frames, K)
-    cards = [free_run(tracker("cuda"), frames, K) for _ in range(2)]
+    with segsum_runs(torch, "phase 5, the tiny tracker's card runs"):
+        cards = [free_run(tracker("cuda"), frames, K) for _ in range(2)]
     for card in cards:
         check_free_runs(ref, card)
     (i0, k0, p0), (i1, k1, p1) = cards
@@ -1655,7 +1761,8 @@ def phase_loop_closure(torch, kernels):
           f"loop-edge batches (keyframe, edges) {on['batches']}, global BA in-run at "
           f"{on['in_run']}, rounds {len(on['rounds'])}, peak device memory {on['peak']:.3f} "
           f"GiB (above what earlier phases left allocated), launches { {k: v for k, v in on['launches'].items() if v} }")
-    again = run(True)
+    with segsum_runs(torch, "phase 6, the second loop-closure run"):
+        again = run(True)
     off = run(False)
     same = (np.array_equal(on["poses"], again["poses"]) and torch.equal(on["dvec"], again["dvec"])
             and on["in_run"] == again["in_run"] and on["batches"] == again["batches"])
@@ -1840,7 +1947,8 @@ def phase_classic_lc(torch, kernels, stream):
           f"corrections applied at {inline['applied']}, peak device memory "
           f"{inline['peak']:.3f} GiB, launches "
           f"{ {k: v for k, v in inline['launches'].items() if v} }")
-    again = run(False)
+    with segsum_runs(torch, "phase 7, the second inline run"):
+        again = run(False)
     same = np.array_equal(inline["poses"], again["poses"]) and inline["applied"] == again["applied"]
     print(f"classic loop closure: a second inline run bit for bit equal (poses, corrections): "
           f"{same} (largest pose difference "
@@ -1871,6 +1979,68 @@ def phase_classic_lc(torch, kernels, stream):
     return sites
 
 
+def _segsum_site():
+    """The port's function that called the segment sum: "file:function" of
+    the innermost frame in dpvo_tpu_torch outside ba/segsum.py."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename.replace(os.sep, "/")
+        if "/dpvo_tpu_torch/" in path and not path.endswith("/ba/segsum.py"):
+            return f"{path.rsplit('/dpvo_tpu_torch/', 1)[1]}:{f.f_code.co_name}"
+        f = f.f_back
+    return "elsewhere"
+
+
+# the global BA's reductions, whose runs are thousands of rows long
+LONG_RUN_SITES = ("ba/gba_sparse.py:",)
+
+
+@contextlib.contextmanager
+def segsum_runs(torch, label):
+    """While open, every segment-sum kernel call also records, by call site,
+    its longest run of ids in [0, Md) and how far into a run its last
+    nonzero row lies (padded edges carry exact zeros, which change no bit of
+    a sum); on the device, without a sync. On leaving, prints them beside
+    ba/segsum.CHUNK and raises where a site other than the global BA's has
+    a nonzero row past the first CHUNK of its run: there the chunked order
+    would differ from the sequential sum that earlier builds took."""
+    from dpvo_tpu_torch.ba import segsum
+
+    sites, real = {}, segsum._segment_sum_kernel
+
+    def watched(payload, kd, order, Md):
+        site = _segsum_site()
+        n, longest, live = sites.get(site, (0, 0, 0))
+        if payload.shape[0]:
+            o = order.long()
+            ids = kd[o]
+            rank = torch.arange(1, ids.shape[0] + 1, device=ids.device) - torch.searchsorted(ids,
+                                                                                               ids)
+            keep = (ids >= 0) & (ids < Md)
+            nonzero = (payload != 0).any(1)[o]
+            longest = torch.maximum(torch.as_tensor(longest, device=ids.device),
+                                    torch.where(keep, rank, 0).max())
+            live = torch.maximum(torch.as_tensor(live, device=ids.device),
+                                 torch.where(keep & nonzero, rank, 0).max())
+        sites[site] = (n + 1, longest, live)
+        return real(payload, kd, order, Md)
+
+    segsum._segment_sum_kernel = watched
+    try:
+        yield
+    finally:
+        segsum._segment_sum_kernel = real
+    rows = {site: (n, int(a), int(b)) for site, (n, a, b) in sorted(sites.items())}
+    print(f"segsum runs, {label} (CHUNK {segsum.CHUNK}): " + "; ".join(
+        f"{site} {n} calls, longest run {a} rows, its last nonzero row at {b}"
+        for site, (n, a, b) in rows.items()))
+    bad = [site for site, (_, _, b) in rows.items()
+           if b > segsum.CHUNK and not site.startswith(LONG_RUN_SITES)]
+    if not rows or bad:
+        raise AssertionError(f"segsum runs, {label}: no call, or nonzero rows past CHUNK at the "
+                             f"short-run sites {bad}")
+
+
 # Phase 8: the train entry point at full width (Config(): 80 patches a frame,
 # DIM 384, FDIM 128, bf16) from weights/vonet_synth.npz, the recipe's clip
 # (15 frames, 18 unroll steps) at 480x640; then the fixed-clip overfit check
@@ -1891,12 +2061,9 @@ def phase_training(torch, kernels):
     from dpvo_tpu_torch.apps import train as train_app
     from dpvo_tpu_torch.config import Config
     from dpvo_tpu_torch.data.factory import SyntheticClipDataset
-    from dpvo_tpu_torch.runtime.weights import init_networks, load_networks, load_npz
+    from dpvo_tpu_torch.runtime.weights import load_networks, load_npz
     from dpvo_tpu_torch.train import make_optimizer, make_train_step
-    from dpvo_tpu_torch.train.step import Optimizer
-    from dpvo_tpu_torch.utils.synthetic import PlaneScene
 
-    dev = torch.device("cuda")
     outdir = os.path.join(ROOT, "runs", "chip_smoke_train")  # git-ignored
     shutil.rmtree(outdir, ignore_errors=True)
     npz = os.path.join(ROOT, "weights", "vonet_synth.npz")
@@ -1972,12 +2139,13 @@ def phase_training(torch, kernels):
     # two full steps from one state and one draw: printed, not gated (the
     # unroll keeps other nondeterministic sums, ROADMAP.md section 3)
     runs = []
-    for _ in range(2):
-        n2, s2, m2 = step(copy.deepcopy(nets), copy.deepcopy(opt_state), batch,
-                          torch.Generator().manual_seed(4))
-        runs.append((float(m2["loss"]), {k: torch.zeros_like(p) if p.grad is None else p.grad
-                                         for k, p in n2.named_parameters()},
-                     n2.state_dict()))
+    with segsum_runs(torch, "phase 8, two full steps from one state"):
+        for _ in range(2):
+            n2, s2, m2 = step(copy.deepcopy(nets), copy.deepcopy(opt_state), batch,
+                              torch.Generator().manual_seed(4))
+            runs.append((float(m2["loss"]), {k: torch.zeros_like(p) if p.grad is None else p.grad
+                                             for k, p in n2.named_parameters()},
+                         n2.state_dict()))
     (la, ga, pa), (lb, gb, pb) = runs
     print(f"training: two steps from one state and one draw: losses {la!r} {lb!r}; gradient "
           f"leaves bit for bit equal {sum(torch.equal(v, gb[k]) for k, v in ga.items())} of "
@@ -1985,7 +2153,32 @@ def phase_training(torch, kernels):
           f"{len(pa)}")
     del runs, ga, gb, pa, pb
 
-    # the overfit check: one fixed small clip, constant-lr AdamW, f32
+    t0 = time.perf_counter()
+    with segsum_runs(torch, "phase 8, the fixed-clip overfit"):
+        losses = fixed_clip_overfit(torch)
+    first, last = float(np.median(losses[:5])), float(np.median(losses[-5:]))
+    print(f"training: fixed-clip overfit ({OVERFIT_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s): median loss of the first 5 steps {first:.5g}, of "
+          f"the last 5 {last:.5g} ({last / first:.3f}x); losses {[round(x, 4) for x in losses]}")
+    if not (np.isfinite(losses).all() and last < 0.7 * first):
+        raise AssertionError("training: the fixed-clip loss did not fall below 0.7x its start")
+    return launches
+
+
+def fixed_clip_overfit(torch, steps=OVERFIT_STEPS):
+    """steps training steps on the card on one fixed small clip
+    (tests/test_train.py's tiny configuration in f32, constant-lr AdamW),
+    through make_train_step; returns the losses. Two runs part at the first
+    step, in the encoders' gradients: cuDNN's convolution backward picks a
+    nondeterministic algorithm at these shapes (with
+    torch.backends.cudnn.deterministic they repeat; scripts/segsum_ab.py
+    overfit)."""
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.runtime.weights import init_networks
+    from dpvo_tpu_torch.train import make_train_step
+    from dpvo_tpu_torch.train.step import Optimizer
+    from dpvo_tpu_torch.utils.synthetic import PlaneScene
+
     small = Config(PATCHES_PER_FRAME=4, DIM=32, FDIM=16, MIXED_PRECISION=False)
     HT, WD, F = 64, 96, 5
     scene = PlaneScene(ht=HT, wd=WD, n_frames=F, depth=4.0, seed=3)
@@ -1995,23 +2188,16 @@ def phase_training(torch, kernels):
                  disps=np.stack([scene.inv_depth(t, xs.astype(np.float64), ys.astype(np.float64))
                                  for t in range(F)])[None].astype(np.float32),
                  intrinsics=scene.intrinsics[None].astype(np.float32))
-    tiny = init_networks(small, torch.Generator().manual_seed(0)).to(dev)
+    tiny = init_networks(small, torch.Generator().manual_seed(0)).to(torch.device("cuda"))
     otx = Optimizer(lambda count: 3e-4, clip=10.0, weight_decay=1e-4)
     ost = otx.init({k: p.detach() for k, p in tiny.named_parameters()})
     ostep = make_train_step(small, otx, STEPS=4)
     gen = torch.Generator().manual_seed(1)
     losses = []
-    t0 = time.perf_counter()
-    for _ in range(OVERFIT_STEPS):
+    for _ in range(steps):
         tiny, ost, m = ostep(tiny, ost, fixed, gen)
         losses.append(float(m["loss"]))
-    first, last = float(np.median(losses[:5])), float(np.median(losses[-5:]))
-    print(f"training: fixed-clip overfit ({OVERFIT_STEPS} steps in "
-          f"{time.perf_counter() - t0:.1f} s): median loss of the first 5 steps {first:.5g}, of "
-          f"the last 5 {last:.5g} ({last / first:.3f}x); losses {[round(x, 4) for x in losses]}")
-    if not (np.isfinite(losses).all() and last < 0.7 * first):
-        raise AssertionError("training: the fixed-clip loss did not fall below 0.7x its start")
-    return launches
+    return losses
 
 
 # Phase 9. Bound on the largest difference between the exported tracker's

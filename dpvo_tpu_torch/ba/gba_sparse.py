@@ -20,9 +20,13 @@ camera system S [6W, 6W], solved by a Cholesky factorization.
 
 Every reduction is ``ba/segsum.segment_sum``: the sorted segment-sum
 kernel on a card (no float atomics, so a card run is reproducible bit
-for bit), ``index_add_`` on the CPU. The kernel reads its rows in the
-stable sort order of their segment ids, which the host ships beside each
-id array. The dense solve is ``torch.linalg.cholesky_ex`` and
+for bit), its plain version (``index_add_``) on the CPU, both in one
+order. The kernel reads its rows in the stable sort order of their
+segment ids, which the host ships beside each id array. The pose blocks',
+v's and E Q u's runs are thousands of rows long, the kpairs' hundreds:
+each run is summed in pieces of ``segsum.CHUNK`` rows, each piece row
+after row, the pieces then in order (XLA's order in the JAX package is
+its own, so the two agree to rounding). The dense solve is ``torch.linalg.cholesky_ex`` and
 ``torch.cholesky_solve`` (the JAX package's ``cho_factor``/``cho_solve``
 are XLA, not a Pallas kernel; the SPD kernel stops at 96 unknowns). The
 port solves at the live size (W free poses, Md depth variables) where

@@ -14,30 +14,68 @@ exported program imports it first. The gradient of a segment sum is a
 gather of the output's gradient by segment id (the op's registered
 autograd), the adjoint that XLA derives for the JAX package's sums: no
 kernel of its own.
+
+Summation order, the same in the kernel and the plain version: a
+segment's rows, in the stable sorted order of their ids (edge order
+within a segment), are cut into pieces of ``CHUNK`` rows counted from
+the run's first row; each piece is summed row after row from 0.0 with
+plain f32 adds, and the pieces' sums are then added in piece order. A
+run of at most ``CHUNK`` rows is therefore the plain sequential sum. The
+tracker's BA and SoftAgg, training's BA, SoftAgg and d gmap, the PGO and
+the triplet BA have no longer runs of nonzero rows (padded edges add
+exact zeros, which change no bit), so only the global BA's long runs are
+split.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
 from dpvo_tpu_torch import kernels
 
+# rows of a piece, fixed here and never derived from the card: 256 of the
+# powers of two 128-512 timed on an H100 (PERF.md: 128 sums the global
+# BA faster and BA's short runs slower)
+CHUNK = 256
+
 
 def segment_sum_plain(payload, kd, Md: int):
     """out[s] = sum of payload[e] over edges with kd[e] == s, s < Md, in
-    f32 (ids outside [0, Md) dropped): [E, K] f32 or bf16 -> [Md, K] f32.
-    ``index_add_`` on the CPU adds the rows one after another in edge
-    order, which is the kernel's order (the stable sort keeps edge order
-    within a segment), so the two give the same bits, at any thread
-    count. On a CUDA tensor ``index_add_`` adds with atomics: the same
-    sums in an order that varies."""
+    f32 (ids outside [0, Md) dropped): [E, K] f32 or bf16 -> [Md, K] f32,
+    in the order the module docstring sets out. ``index_add_`` on the CPU
+    adds the rows one after another in index order, at any thread count;
+    a segment of at most ``CHUNK`` rows takes one such sum in edge order
+    (the stable sort keeps edge order within a segment). Where a segment
+    is longer, a first ``index_add_`` sums the rows into one slot per
+    (segment, piece) in edge order, and a second adds each segment's
+    slots in piece order. On a CUDA tensor ``index_add_`` adds with
+    atomics: the same sums in an order that varies."""
     kd = kd.long()
+    E, K = payload.shape
     idx = torch.where((kd < 0) | (kd >= Md), Md, kd)
     dt = torch.promote_types(payload.dtype, torch.float32)  # f64 stays f64 (gradcheck)
-    out = torch.zeros((Md + 1, payload.shape[1]), dtype=dt, device=payload.device)
-    return out.index_add_(0, idx, payload.to(dt))[:Md]
+    x = payload.to(dt)
+    counts = torch.bincount(idx, minlength=Md + 1)[:Md]
+    if Md == 0 or int(counts.max()) <= CHUNK:
+        out = torch.zeros((Md + 1, K), dtype=dt, device=payload.device)
+        return out.index_add_(0, idx, x)[:Md]
+    # each row's place in its run: its sorted position less the run's start
+    order = torch.argsort(idx, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(E, device=kd.device)
+    start = torch.cumsum(counts, 0) - counts
+    pieces = (counts + CHUNK - 1) // CHUNK
+    first = torch.cumsum(pieces, 0) - pieces  # each segment's first (segment, piece) slot
+    n = int(pieces.sum())
+    keep = idx < Md
+    safe = torch.where(keep, idx, 0)
+    slot = torch.where(keep, first[safe] + (pos - start[safe]) // CHUNK, n)
+    partial = torch.zeros((n + 1, K), dtype=dt, device=payload.device).index_add_(0, slot, x)
+    seg = torch.repeat_interleave(torch.arange(Md, device=kd.device), pieces)
+    return torch.zeros((Md, K), dtype=dt, device=payload.device).index_add_(0, seg, partial[:n])
 
 
 def segment_sum_backward(g, kd, Md: int, dtype):
@@ -108,14 +146,38 @@ def _check_kernel_args(payload, kd, order):
     kernels.require_cuda("segment_sum", payload, kd, order)
 
 
+# per (device, stream): the kernel's arrival counters (int64, zero between
+# launches: the warp that completes a long run resets its counter) and its
+# partial sums (one row per CHUNK sorted positions), grown as needed
+_workspaces = {}
+_workspace_lock = threading.Lock()
+
+
+def _workspace(device, stream: int, tiles: int, K: int):
+    key = (device.index, stream)
+    with _workspace_lock:
+        arrivals, partials = _workspaces.get(key, (None, None))
+        if arrivals is None or arrivals.numel() < tiles:
+            arrivals = torch.zeros(max(1024, 1 << (tiles - 1).bit_length()), dtype=torch.int64,
+                                   device=device)
+        if partials is None or partials.numel() < tiles * K:
+            partials = torch.empty(max(1 << 16, 1 << (tiles * K - 1).bit_length()),
+                                   dtype=torch.float32, device=device)
+        _workspaces[key] = arrivals, partials
+    return arrivals, partials
+
+
 def _segment_sum_kernel(payload, kd, order, Md: int):
     _check_kernel_args(payload, kd, order)
     E, K = payload.shape
     lib = kernels.load()
     out = torch.empty((Md, K), dtype=torch.float32, device=payload.device)
     bf16 = payload.dtype == torch.bfloat16
+    stream = kernels.stream_ptr(payload)
+    arrivals, partials = _workspace(payload.device, stream, -(-E // CHUNK), K)
     rc = lib.dpvo_segment_sum(payload.data_ptr(), kd.data_ptr(), order.data_ptr(),
-                              out.data_ptr(), E, K, Md, int(bf16), kernels.stream_ptr(payload))
+                              out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), E, K, Md,
+                              CHUNK, int(bf16), stream)
     kernels.check("segment_sum", rc)
     kernels.count("segsum_bf16" if bf16 else "segsum")
     return out

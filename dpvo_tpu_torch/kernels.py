@@ -53,8 +53,8 @@ _SIGNATURES = {
     # f1, fmap, jj, valid, syc, sxc, dy, dxw, dyf, dxf, vf, out, E, mem, H, W, C, stream
     "dpvo_corr_sw_fused": [_VP] * 12 + [_I] * 5 + [_VP],
     "dpvo_corr_v3_fused": [_VP] * 12 + [_I] * 5 + [_VP],
-    # payload, kd, order, out, E, K, Md, is_bf16, stream
-    "dpvo_segment_sum": [_VP] * 4 + [_I] * 4 + [_VP],
+    # payload, kd, order, out, partials, arrivals, E, K, Md, chunk, is_bf16, stream
+    "dpvo_segment_sum": [_VP] * 6 + [_I] * 5 + [_VP],
     # S, y, x, n, stream
     "dpvo_spd_solve": [_VP] * 3 + [_I, _VP],
 }

@@ -71,8 +71,11 @@ def grouped_sum(x, seg, num_segments: int, order=None):
     kernel (``ba/segsum.py``), which reads a bf16 x as it is: a fixed
     summation order, so the card gives the same bits on every run, where
     ``index_add_`` sums with float atomics in an order that varies. On the
-    CPU its plain version, ``index_add_``, which there adds the rows one
-    after another: the same bits as the kernel. order: a stable argsort of
+    CPU its plain version, whose ``index_add_`` there adds the rows one
+    after another: the same bits as the kernel. The order is the segment
+    sum's: row after row in edge order within pieces of ``CHUNK`` rows,
+    the pieces then in order; SoftAgg's groups (<= 96 rows with a nonzero
+    payload) take one piece, the sequential sum. order: a stable argsort of
     seg for the kernel, computed here when not given. Differentiable in x
     (the op ``ba/segsum.segment_sum``)."""
     if order is None and x.device.type != "cpu":

@@ -14,7 +14,7 @@ from dpvo_tpu.ba.segsum_pallas import EB, segment_sum_sorted
 from dpvo_tpu.ba.spd_solve import spd_solve as j_spd_solve
 from dpvo_tpu.lie import se3 as jse3
 from dpvo_tpu_torch.ba import solver as tsolver
-from dpvo_tpu_torch.ba.segsum import segment_sum
+from dpvo_tpu_torch.ba.segsum import CHUNK, segment_sum
 from dpvo_tpu_torch.ba.spd_solve import spd_solve
 from test_ba import synthetic_problem
 from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -25,13 +25,18 @@ def _t(x, dtype=None):
     return t.to(dtype) if dtype is not None else t
 
 
-@pytest.mark.parametrize("K,Md", [(20, 40), (98, 300)])
-def test_segment_sum_matches_pallas_interpret(K, Md):
+@pytest.mark.parametrize("K,Md,E,run", [pytest.param(20, 40, 2 * EB, 0, id="20-40"),
+                                        pytest.param(98, 300, 2 * EB, 0, id="98-300"),
+                                        pytest.param(36, 50, 4 * EB, 2 * CHUNK + 37,
+                                                     id="36-50-long-run")])
+def test_segment_sum_matches_pallas_interpret(K, Md, E, run):
     """Sorted dense ids through a stable argsort: f32 sums of <= E rows,
-    tolerance for summation order only."""
+    tolerance for summation order only. The third case has one segment of
+    more than 2 * CHUNK rows, which the port sums in three pieces."""
     rng = np.random.default_rng(K)
-    E = 2 * EB
-    kd = np.concatenate([np.arange(min(Md, E)), rng.integers(0, Md, E - min(Md, E))])
+    assert run < E - Md
+    kd = np.concatenate([np.arange(min(Md, E)), np.full(run, 7),
+                         rng.integers(0, Md, E - min(Md, E) - run)])
     rng.shuffle(kd)
     payload = rng.standard_normal((E, K)).astype(np.float32)
     order = np.argsort(kd, kind="stable")
@@ -43,34 +48,76 @@ def test_segment_sum_matches_pallas_interpret(K, Md):
 
 
 def _sequential_sums(payload, kd, Md):
-    """The kernel's function, row after row in edge order (np.add.at is
-    unbuffered): f32 sums, ids outside [0, Md) dropped."""
+    """Row after row in edge order (np.add.at is unbuffered): f32 sums, ids
+    outside [0, Md) dropped."""
     keep = (kd >= 0) & (kd < Md)
     out = np.zeros((Md, payload.shape[1]), np.float32)
     np.add.at(out, kd[keep], payload[keep].astype(np.float32))
     return out
 
 
-@pytest.mark.parametrize("threads", [1, 4])
-def test_segment_sum_plain_is_sequential(threads):
-    """The plain version gives the bits of the sequential sorted-order sums
-    (the kernel's order) with any torch thread count, on a long run, empty
-    segments and ids outside [0, Md), which are dropped."""
-    rng = np.random.default_rng(11)
-    E, K, Md = 4000, 98, 300
-    kd = rng.integers(-3, Md + 5, E)
-    kd[rng.uniform(size=E) < 0.15] = 7  # a run of ~600 rows
-    kd[(kd > 100) & (kd < 120)] = 121   # empty segments
-    payload = (rng.standard_normal((E, K)) * rng.uniform(0.01, 100, (E, 1))).astype(np.float32)
+def _chunked_sums(payload, kd, Md, chunk=CHUNK):
+    """The kernel's function: each segment's rows in edge order cut into
+    pieces of `chunk` rows from its first, each piece summed row after row
+    from 0 in f32, then the pieces' sums added in piece order; ids outside
+    [0, Md) dropped."""
+    out = np.zeros((Md, payload.shape[1]), np.float32)
+    for s in range(Md):
+        rows = payload[kd == s].astype(np.float32)
+        for a in range(0, len(rows), chunk):
+            piece = np.zeros(payload.shape[1], np.float32)
+            for row in rows[a:a + chunk]:
+                piece += row
+            out[s] += piece
+    return out
+
+
+def _plain_sums(payload, kd, Md, threads):
     before = torch.get_num_threads()
     torch.set_num_threads(threads)
     try:
         got = segment_sum(_t(payload), _t(kd, torch.int32), None, Md)
     finally:
         torch.set_num_threads(before)
-    assert got.dtype == torch.float32 and got.shape == (Md, K)
-    assert np.array_equal(got.numpy(), _sequential_sums(payload, kd, Md))
+    assert got.dtype == torch.float32 and got.shape == (Md, payload.shape[1])
+    return got
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_segment_sum_plain_is_sequential(threads):
+    """The plain version gives the bits of the kernel's order, CHUNK-row
+    pieces summed row after row and then in piece order, with any torch
+    thread count, on a run of ~600 rows (three pieces), empty segments
+    and ids outside [0, Md), which are dropped."""
+    rng = np.random.default_rng(11)
+    E, K, Md = 4000, 98, 300
+    kd = rng.integers(-3, Md + 5, E)
+    kd[rng.uniform(size=E) < 0.15] = 7  # a run of ~600 rows
+    kd[(kd > 100) & (kd < 120)] = 121   # empty segments
+    payload = (rng.standard_normal((E, K)) * rng.uniform(0.01, 100, (E, 1))).astype(np.float32)
+    assert (kd == 7).sum() > 2 * CHUNK
+    got = _plain_sums(payload, kd, Md, threads)
+    assert np.array_equal(got.numpy(), _chunked_sums(payload, kd, Md))
+    assert not np.array_equal(got.numpy()[7], _sequential_sums(payload, kd, Md)[7])
     assert (got[101:120] == 0).all()
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_segment_sum_plain_short_runs_are_sequential(threads):
+    """Where no run is longer than CHUNK rows (one of exactly CHUNK), the
+    order is the sequential sum in edge order: the bits of index_add_ row
+    after row, as at the tracker's, training's and classic loop closure's
+    call sites."""
+    rng = np.random.default_rng(13)
+    E, K, Md = 3000, 36, 300
+    kd = np.concatenate([np.full(CHUNK, 5), rng.integers(-3, Md + 5, E - CHUNK)])
+    kd[kd == 5] = 6
+    kd[:CHUNK] = 5
+    rng.shuffle(kd)
+    payload = (rng.standard_normal((E, K)) * rng.uniform(0.01, 100, (E, 1))).astype(np.float32)
+    assert np.bincount(kd[(kd >= 0) & (kd < Md)]).max() == CHUNK
+    got = _plain_sums(payload, kd, Md, threads)
+    assert np.array_equal(got.numpy(), _sequential_sums(payload, kd, Md))
 
 
 def test_segment_sum_plain_bf16_equals_its_f32_cast():

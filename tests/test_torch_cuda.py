@@ -91,6 +91,58 @@ def test_segsum_kernel_matches_plain(dev, dtype, K):
     assert (got[51:60] == 0).all()
 
 
+def _chunk_runs_case(dtype, K, seed):
+    """Runs of 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 CHUNK + 1 and ~30 CHUNK rows,
+    short runs around them, empty segments 50-59, ids below 0 and at or
+    above Md (dropped), shuffled; E not a multiple of CHUNK."""
+    from dpvo_tpu_torch.ba.segsum import CHUNK
+
+    g = torch.Generator().manual_seed(seed)
+    Md = 80
+    long_ids = {3: 1, 10: CHUNK - 1, 11: CHUNK, 20: CHUNK + 1, 21: 2 * CHUNK + 1,
+                40: 30 * CHUNK + 5}
+    short = [i for i in range(Md) if i not in long_ids and not 50 <= i < 60]
+    dropped = torch.tensor([-1, -5, Md, Md + 3])
+    kd = torch.cat([torch.full((n,), i) for i, n in long_ids.items()]
+                   + [torch.tensor(short)[torch.randint(0, len(short), (700,), generator=g)],
+                      dropped[torch.randint(0, 4, (63,), generator=g)]])
+    kd = kd[torch.randperm(kd.shape[0], generator=g)].to(torch.int32)
+    assert kd.shape[0] % CHUNK
+    order = torch.argsort(kd, stable=True).to(torch.int32)
+    payload = (torch.randn(kd.shape[0], K, generator=g)
+               * torch.rand(kd.shape[0], 1, generator=g) * 100).to(dtype)
+    return payload, kd, order, Md
+
+
+@pytest.mark.parametrize("dtype,K", [(torch.float32, 1), (torch.float32, 2), (torch.float32, 6),
+                                     (torch.float32, 7), (torch.float32, 36),
+                                     (torch.float32, 49), (torch.float32, 98),
+                                     (torch.bfloat16, 768)])
+def test_segsum_kernel_long_runs_match_plain(dev, dtype, K):
+    """Runs around and beyond CHUNK rows (one piece, two, three, ~30) beside
+    short ones: the kernel's CHUNK-row pieces, each summed in sorted order
+    and then added in piece order, are the plain version's bits, at row
+    widths that take every row-group count (K = 1, 2, 6: 8 row groups; 7:
+    1-float vectors in 4; 36: 3; 49: one pass of 2 vectors a lane; 98; bf16
+    768: 16-byte loads); one launch a call, and a second launch gives the
+    same bits."""
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.ba.segsum import segment_sum, segment_sum_plain
+
+    payload, kd, order, Md = _chunk_runs_case(dtype, K, K)
+    want = segment_sum_plain(payload, kd, Md)
+    name = "segsum_bf16" if dtype == torch.bfloat16 else "segsum"
+    args = (payload.to(dev), kd.to(dev), order.to(dev), Md)
+    before = kernels.LAUNCHES[name]
+    got = segment_sum(*args).cpu()
+    again = segment_sum(*args).cpu()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(again, got)
+    assert (got[50:60] == 0).all()
+
+
 @pytest.mark.parametrize("n", [48, 96])
 def test_spd_kernel_matches_plain_with_gradient(dev, n):
     """The Cholesky kernel, forward and backward (the autograd Function),

@@ -17,7 +17,7 @@ from dpvo_tpu.models.blocks import segment_softmax as j_segment_softmax
 from dpvo_tpu.runtime.topology import dense_rank, neighbors, pair_rank
 from dpvo_tpu.runtime.weights import load_params
 from dpvo_tpu_torch.config import Config
-from dpvo_tpu_torch.ba.segsum import segment_sum_plain
+from dpvo_tpu_torch.ba.segsum import CHUNK, segment_sum_plain
 from dpvo_tpu_torch.models.blocks import grouped_sum, segment_softmax
 from dpvo_tpu_torch.runtime.weights import load_networks, load_npz, params_from_jax
 from test_torch_package import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -146,15 +146,21 @@ def test_segment_softmax_matches():
 def test_grouped_sum_matches_segment_sum(ns):
     """SoftAgg's grouped sum on the CPU is the segment-sum kernel's plain
     version, the function it takes on the card: f32 sums row after row in
-    edge order (the kernel's sorted order), the same bits for an f32 and a
-    bf16 payload; rows of seg >= ns are dropped."""
+    edge order (the kernel's sorted order) within pieces of CHUNK rows, the
+    pieces then added in order (at ns = 9 each group has ~300 rows), the
+    same bits for an f32 and a bf16 payload; rows of seg >= ns are
+    dropped."""
     rng = np.random.default_rng(6)
     x = torch.as_tensor(rng.standard_normal((3000, 16)).astype(np.float32))
     seg = torch.as_tensor(rng.integers(0, ns + 1, 3000).astype(np.int32))
     got = grouped_sum(x, seg, ns)
     want = np.zeros((ns, 16), np.float32)
-    keep = seg.numpy() < ns
-    np.add.at(want, seg.numpy()[keep], x.numpy()[keep])
+    for s in range(ns):
+        rows = x.numpy()[seg.numpy() == s]
+        for a in range(0, len(rows), CHUNK):
+            piece = np.zeros(16, np.float32)
+            np.add.at(piece[None], np.zeros(len(rows[a:a + CHUNK]), int), rows[a:a + CHUNK])
+            want[s] += piece
     assert got.dtype == torch.float32 and got.shape == (ns, 16)
     assert np.array_equal(got.numpy(), want)
     xb = x.to(torch.bfloat16)
