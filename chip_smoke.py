@@ -132,7 +132,15 @@ Phases, in order; the first that fails ends the run with a nonzero exit:
    launched; one step of apps/train.py --mesh 1,1 at phase 8's shape (finite
    loss; its parameters' difference from a step without a mesh printed
    beside the 1.53e-4 that a backward with f32 atomics gave). The
-   group is destroyed at the end.
+   group is destroyed. Then training's edge split (phase_edge_split):
+   phase 8's full-width step from one state and one draw on a (1, 2) mesh,
+   two gloo ranks on the one card, each a process of its own
+   (``chip_smoke.py edge-rank``), twice in each rank: each rank launches
+   the correlation (forward and backward), segment-sum and SPD kernels, its
+   correlation takes half of the last unroll step's edges, its loss,
+   metrics and parameters are the single-process card step's within the
+   CPU test's tolerances, and its two runs and the two ranks give the same
+   bits; each rank's step seconds, peak memory and busy share printed.
 
 Segment-sum runs (segsum_runs): the second xla run of phase 4, the tiny
 tracker's card runs of phase 5, the second loop-closure run of phase 6,
@@ -2645,6 +2653,229 @@ def phase_gradient_bias_parallel(torch, kernels, smi, main_ate, stream):
     return launches
 
 
+# Phase 10, item 6: training's edge split, two gloo ranks on the one card (NCCL
+# refuses two ranks on one device), each a process of its own, each taking
+# the step EDGE_RUNS times (the first warms the process, the last is profiled)
+EDGE_RANKS = 2
+EDGE_RUNS = 3
+EDGE_RANK_TIMEOUT_S = 600
+EDGE_KERNELS = ("corr", "corr_bwd", "segsum", "segsum_bf16", "spd_solve")
+# The split step against the single-process step, quantity by quantity (the
+# parameters' update, as a fraction of their norm; the loss, the gradient
+# norm and the last unroll step's metrics, relative): within the CPU test's
+# tolerance (tests/test_torch_parallel.py::
+# test_edge_split_train_step_matches_single_process) or within how far the
+# single-process step itself moves when its weights are scaled by each of
+# EDGE_SCALES, whichever is larger. The CPU's tolerances cannot tell a fault
+# from rounding at full width: on an H100 (700 W) the scaled bf16 steps moved
+# the loss by 2.6e-3 and 5.4e-3, the metrics by up to 4.0% and the update by
+# 1.4e-5 of the norm (f32: up to 7.2e-4, 0.59%, 3.1e-6), where the split moved
+# them by 4.4e-4, up to 1.5% and 7.0e-6 (f32: 5.6e-4, 0.28%, 2.0e-6).
+EDGE_TOL = {"update": 1e-5, "loss": 1e-4, "flow": 1e-4, "tr": 1e-4, "ro": 1e-4, "px1": 1e-4,
+            "gnorm": 1e-2}
+EDGE_SCALES = (1 + 1e-6, 1 - 1e-6)
+
+
+def _edge_inputs(torch, workdir):
+    """Phase 8's full-width step from weights/vonet_synth.npz (Config(),
+    bf16), its clip (SyntheticClipDataset seed 5) and one draw (generator
+    seed 4), written to workdir/inputs.pt for the ranks; returns them."""
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.data.factory import SyntheticClipDataset
+    from dpvo_tpu_torch.models.vonet import draw_inputs
+    from dpvo_tpu_torch.runtime.weights import load_networks
+
+    cfg = Config()
+    clip = SyntheticClipDataset(n_frames=15, ht=480, wd=640, seed=5).sample()
+    batch = {k: v[None] for k, v in zip(("images", "poses", "disps", "intrinsics"), clip)}
+    draws = [draw_inputs(15, cfg.PATCHES_PER_FRAME, 480 // cfg.RES, 640 // cfg.RES, 18,
+                         torch.Generator().manual_seed(4), strategy=cfg.CENTROID_SEL_STRAT)]
+    state = load_networks(cfg, os.path.join(ROOT, "weights", "vonet_synth.npz")).state_dict()
+    inputs = dict(batch=batch, draws=draws, state=state)
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    return inputs
+
+
+def edge_split_step(torch, kernels, inputs, mesh=None, scale=1.0, profiled=False):
+    """One phase-8 train step on the card from inputs' state (its weights
+    times ``scale``), batch and draws (a fresh optimizer), split over mesh's
+    edge axis where given. Returns the parameters' update (flat, on the
+    CPU), the metrics, the edge count of each correlation call of the
+    forward pass, the kernels' launches, the step's seconds and peak
+    memory, and (profiled) its busy share."""
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.models import vonet
+    from dpvo_tpu_torch.runtime.weights import Networks
+    from dpvo_tpu_torch.train import make_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the train entry point sets them
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config()
+    nets = Networks(cfg)
+    nets.load_state_dict(inputs["state"])
+    nets = nets.to("cuda")
+    with torch.no_grad():
+        for p in nets.parameters():
+            p.mul_(scale)
+    flat = lambda n: torch.cat([v.detach().reshape(-1).to(torch.float32).cpu()
+                                for _, v in sorted(n.state_dict().items())])
+    before = flat(nets)
+    tx, _ = make_optimizer(lr=8e-5, total_steps=240000)
+    step = make_train_step(cfg, tx, STEPS=18, mesh=mesh)
+    opt = tx.init({k: p.detach() for k, p in nets.named_parameters()})
+    edges, real_corr = [], vonet.corr_features_train
+
+    def counted(gmap, pyr1, pyr2, coords, *args, **kw):
+        edges.append(coords.shape[0])
+        return real_corr(gmap, pyr1, pyr2, coords, *args, **kw)
+
+    vonet.corr_features_train = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    busy = None
+    try:
+        t0 = time.perf_counter()
+        if profiled:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                nets, _, m = step(nets, opt, inputs["batch"], inputs["draws"])
+                torch.cuda.synchronize()
+        else:
+            nets, _, m = step(nets, opt, inputs["batch"], inputs["draws"])
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        vonet.corr_features_train = real_corr
+    if profiled:
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        busy = busy_us / 1e6 / sec if busy_us else None
+    return dict(update=flat(nets) - before, norm=before.norm().item(),
+                metrics={k: float(v) for k, v in m.items()}, edges=edges[:18],
+                launches=_launched(kernels), seconds=sec,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, busy=busy)
+
+
+def edge_rank_main(rank: str, world: str, workdir: str):
+    """One rank of phase 10's edge split (``python3 chip_smoke.py edge-rank
+    RANK WORLD DIR``): joins a gloo group through a FileStore in DIR, takes
+    inputs.pt's step EDGE_RUNS times on the split of a (1, WORLD) mesh and
+    writes the runs to DIR/rank<RANK>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.parallel import make_mesh
+    from dpvo_tpu_torch.parallel.multihost import init_distributed
+
+    rank, world = int(rank), int(world)
+    init_distributed(f"file://{os.path.join(workdir, 'store')}", world, rank, backend="gloo",
+                     timeout_s=EDGE_RANK_TIMEOUT_S)
+    try:
+        mesh = make_mesh(1, world, device_type="cpu")
+        inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+        runs = [edge_split_step(torch, kernels, inputs, mesh, profiled=i == EDGE_RUNS - 1)
+                for i in range(EDGE_RUNS)]
+        torch.save(runs, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _edge_distance(run, ref):
+    """run's distance from ref: the update's as a fraction of the
+    parameters' norm, each metric's relative."""
+    d = {"update": ((run["update"] - ref["update"]).norm() / ref["norm"]).item()}
+    d.update({k: abs(run["metrics"][k] - v) / max(abs(v), 1e-30)
+              for k, v in ref["metrics"].items()})
+    return d
+
+
+def phase_edge_split(torch, kernels):
+    """Phase 10, item 6: phase 8's full-width step split over the edge axis
+    of a (1, EDGE_RANKS) mesh, each rank a process on the one card (gloo on
+    CUDA tensors), from one state and one draw, EDGE_RUNS times in each
+    rank. Gated: each rank's runs launch EDGE_KERNELS; its correlation takes
+    half of the last unroll step's edges; its update, loss and metrics lie
+    within EDGE_TOL or the single-process step's own move under the weight
+    scalings EDGE_SCALES of the single-process card step; its runs, and the
+    ranks, give the same bits. Printed: each run's seconds, peak memory and
+    (the last) busy share, beside the single-process step's (two processes
+    share the card and its host). Returns rank 0's first run's launches
+    (segsum's and SPD's also under phase 8's names, segsum_train and
+    spd_train)."""
+    import shutil
+    import tempfile
+
+    from dpvo_tpu_torch.models.vonet import build_schedule
+
+    workdir = tempfile.mkdtemp()
+    try:
+        inputs = _edge_inputs(torch, workdir)
+        single = edge_split_step(torch, kernels, inputs)
+        scaled = {s: _edge_distance(edge_split_step(torch, kernels, inputs, scale=s), single)
+                  for s in EDGE_SCALES}
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "edge-rank",
+                                   str(r), str(EDGE_RANKS), workdir], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(EDGE_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=EDGE_RANK_TIMEOUT_S)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"edge split: rank {r} failed:\n{out[-4000:]}")
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(EDGE_RANKS)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    Es = len(build_schedule(15, 80, 18)[-1].kk)
+    fmt = lambda d: "{" + ", ".join(f"{k} {v:.3g}" for k, v in sorted(d.items())) + "}"
+    tol = {k: max([t] + [d[k] for d in scaled.values()]) for k, t in EDGE_TOL.items()}
+    print(f"phase 10, edge split: the single-process step {single['seconds']:.3f} s, peak "
+          f"{single['peak_gib']:.3f} GiB, {single['edges'][-1]} edges at the last unroll step; "
+          + " ".join(f"{k} {v!r}" for k, v in sorted(single["metrics"].items())))
+    for s, d in scaled.items():
+        print(f"phase 10, edge split: the single-process step with its weights x {s!r}, its "
+              f"distance from the step: {fmt(d)}")
+    print(f"phase 10, edge split: bounds (the larger of the CPU test's and the scaled steps' "
+          f"distances): {fmt(tol)}")
+    bad = []
+    for r, runs in enumerate(ranks):
+        for i, run in enumerate(runs):
+            d = _edge_distance(run, single)
+            busy = "not measured" if run["busy"] is None else f"{100 * run['busy']:.1f}%"
+            print(f"phase 10, edge split: rank {r} run {i}: {run['seconds']:.3f} s"
+                  f"{' (profiled)' if i == EDGE_RUNS - 1 else ''}, peak "
+                  f"{run['peak_gib']:.3f} GiB, busy {busy}; {run['edges'][-1]} of {Es} edges "
+                  f"at the last unroll step; distance from the single-process step {fmt(d)}; "
+                  f"launches {run['launches']}")
+            if (min(run["launches"].get(k, 0) for k in EDGE_KERNELS) == 0
+                    or run["edges"][-1] * EDGE_RANKS != Es or any(d[k] > tol[k] for k in tol)):
+                bad.append((r, i))
+    first = ranks[0][0]
+    same = all(torch.equal(run["update"], first["update"]) and run["metrics"] == first["metrics"]
+               for runs in ranks for run in runs)
+    print(f"phase 10, edge split: every run of every rank bit for bit the first: {same}")
+    if bad or not same:
+        raise AssertionError(f"edge split: runs {bad} missed a kernel, half of the edges or the "
+                             f"bounds, or the runs or ranks differ")
+    n = first["launches"]  # phase 8's rows name the training path's sites
+    return dict(n, segsum_train=n.get("segsum", 0), spd_train=n.get("spd_solve", 0))
+
+
 def main():
     try:
         import torch
@@ -2702,7 +2933,8 @@ def main():
     print(f"phase 9: export, demo, evaluation ok ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     p10 = phase_gradient_bias_parallel(torch, kernels, smi, main_ate, stream)
-    print(f"phase 10: GRADIENT_BIAS, the parallel layer, Timer ok "
+    p10["edge_train"] = phase_edge_split(torch, kernels)
+    print(f"phase 10: GRADIENT_BIAS, the parallel layer, Timer, the edge split ok "
           f"({time.perf_counter() - t0:.1f} s)")
 
     cp_src, cp_tpu = "dpvo_tpu_torch/csrc/corr_pallas.cu", "dpvo_tpu/ops/corr_pallas.py"
@@ -2764,4 +2996,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["edge-rank"]:
+        sys.exit(edge_rank_main(*sys.argv[2:]))
     sys.exit(main())

@@ -17,17 +17,20 @@ as in the JAX package. ``--init_encoders DIR`` loads the reference's
 
 Runs on the CUDA card unless ``--device cpu``; without a card it raises.
 
-``--mesh nd,ne`` trains data-parallel over nd * ne processes, one a card
-(the CPU with ``--device cpu``), under torchrun or a process group the
-caller set up:
+``--mesh nd,ne`` trains over nd * ne processes, one a card (the CPU on
+gloo with ``--device cpu``; cards on NCCL), under torchrun or a process
+group the caller set up:
 
-  torchrun --nproc_per_node 4 -m dpvo_tpu_torch.apps.train --mesh 4,1 --batch 4 ...
+  torchrun --nproc_per_node 4 -m dpvo_tpu_torch.apps.train --mesh 2,2 --batch 2 ...
 
-Each rank takes its data rank's clips of rank 0's batch, the gradients are
-averaged over the data axis (``train/step.py``), and only rank 0 logs and
-writes checkpoints. The ranks of one edge group compute the same clips
-(the JAX package's edge axis splits the unroll's edge-parallel work; the
-port does not yet).
+Each data rank takes its clips of rank 0's batch (the batch must split
+over nd), and the ne ranks of its edge group split each clip's unroll by
+patch, as the JAX package's edge axis splits the unroll's edges: each
+computes the correlation, the update operator, its part of BA's normal
+equations and its part of the flow loss on the edges of the patches it
+owns (ne <= PATCHES_PER_FRAME). The gradients are summed over the edge
+axis and averaged over the data axis (``train/step.py``), so every rank
+takes the single-process step; only rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -57,7 +60,9 @@ def parse_args(argv=None):
     p.add_argument("--flow_weight", type=float, default=0.1)
     p.add_argument("--ht", type=int, default=480)
     p.add_argument("--wd", type=int, default=640)
-    p.add_argument("--mesh", default=None, help="e.g. 2,4 for (data,edge)")
+    p.add_argument("--mesh", default=None,
+                   help="nd,ne: nd data ranks (clips), each clip's unroll split over ne edge "
+                        "ranks (by patch), e.g. 2,4")
     p.add_argument("--ckpt_every", type=int, default=10000)
     p.add_argument("--npz_every", type=int, default=1000,
                    help="inference-weight snapshot cadence (npz)")

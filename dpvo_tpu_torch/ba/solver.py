@@ -172,9 +172,11 @@ def schur_solve(B6, E6, C, u, v6, lmbda: float, nfree: int, *, W: int, ep: float
 
 
 def ba_delta(prob: BAProblem, bounds, lmbda: float, *, W: int, Md: int, ep: float = 1.0,
-             lm: float = 1e-4, res_clip: float = 128.0):
-    """One Gauss-Newton step: returns (dX [W,6], dZ [Md])."""
-    B6, E6, C, u, v6 = assemble_normal_eqs(prob, bounds, W=W, Md=Md, res_clip=res_clip)
+             lm: float = 1e-4, res_clip: float = 128.0, allsum=no_sum):
+    """One Gauss-Newton step: returns (dX [W,6], dZ [Md]). allsum: as
+    ``assemble_normal_eqs`` takes it."""
+    B6, E6, C, u, v6 = assemble_normal_eqs(prob, bounds, W=W, Md=Md, res_clip=res_clip,
+                                           allsum=allsum)
     return schur_solve(B6, E6, C, u, v6, lmbda, prob.nfree, W=W, ep=ep, lm=lm)
 
 
@@ -202,13 +204,19 @@ def apply_depth_retr(depths, dZ, clamp_mode: str = "runtime"):
 
 def ba(poses, patch_ctr, intrinsics, target, weight, valid, ii, jj, kd, t0: int, nfree: int,
        bounds, lmbda: float, *, W: int, Md: int, iterations: int = 2, ep: float = 1.0,
-       lm: float = 1e-4, res_clip: float = 128.0, clamp_mode: str = "runtime", kd_order=None):
-    """Run ``iterations`` damped Gauss-Newton steps; returns (poses', depths')."""
+       lm: float = 1e-4, res_clip: float = 128.0, clamp_mode: str = "runtime", kd_order=None,
+       allsum=no_sum):
+    """Run ``iterations`` damped Gauss-Newton steps; returns (poses', depths').
+    allsum (``no_sum``): the sum of the normal equations' partials over the
+    ranks that each hold a part of the edges (a training unroll split over
+    the mesh's edge axis passes its edge axis's ``all_sum``); every
+    rank then solves the same system."""
     depths = patch_ctr[:, 2]
     for _ in range(iterations):
         prob = BAProblem(poses, torch.cat([patch_ctr[:, :2], depths[:, None]], -1), intrinsics,
                          target, weight, valid, ii, jj, kd, t0, nfree, kd_order)
-        dX, dZ = ba_delta(prob, bounds, lmbda, W=W, Md=Md, ep=ep, lm=lm, res_clip=res_clip)
+        dX, dZ = ba_delta(prob, bounds, lmbda, W=W, Md=Md, ep=ep, lm=lm, res_clip=res_clip,
+                          allsum=allsum)
         poses = apply_pose_retr(poses, dX, t0, nfree)
         depths = apply_depth_retr(depths, dZ, clamp_mode)
     return poses, depths

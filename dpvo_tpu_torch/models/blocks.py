@@ -83,20 +83,27 @@ def grouped_sum(x, seg, num_segments: int, order=None):
     return segment_sum(x.contiguous(), seg, order, num_segments)
 
 
-def segment_softmax(x, seg, num_segments: int, valid=None):
+def segment_softmax(x, seg, num_segments: int, valid=None, group=None):
     """Softmax over groups of rows. x [E, C]; seg [E] in [0, num_segments);
-    rows with valid=False contribute nothing and receive weight 0."""
+    rows with valid=False contribute nothing and receive weight 0. group
+    (``parallel.shard.EdgeSplit``): the groups' rows lie on the ranks of a
+    split unroll, x holding this rank's; each group's maximum (without a
+    gradient) and sum are taken over the ranks."""
     if valid is not None:
         seg = torch.where(valid, seg, torch.full_like(seg, num_segments))
     ns = num_segments + 1
     idx = seg[:, None].expand_as(x).long()
     m = torch.full((ns, x.shape[1]), float("-inf"), dtype=x.dtype, device=x.device)
     m = m.scatter_reduce(0, idx, x, reduce="amax", include_self=True)  # order-free: max
+    if group is not None:
+        m = group.max(m)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(x - m[seg])
     if valid is not None:
         e = e * valid[:, None].to(e.dtype)
     den = grouped_sum(e, seg, ns).to(e.dtype)
+    if group is not None:
+        den = group.sum(den)[0]
     return e / torch.clamp(den[seg], min=1e-9)
 
 
@@ -114,6 +121,15 @@ class SoftAgg(nn.Module):
     that (the tiny configuration's patch groups), ``segment_softmax``.
     Every grouped sum goes through ``grouped_sum`` (the sorted segment-sum
     kernel on the card), so the tracker is reproducible run to run.
+
+    In a training unroll split over the mesh's edge axis, x holds this
+    rank's rows and ``group`` is the split (``parallel.shard.EdgeSplit``):
+    the branch is still chosen by the whole unroll's ``num_segments``, and
+    the global per-channel max is taken over the ranks (the same bits as in
+    one process). ``shared`` > 0 says that the groups' rows lie on several
+    ranks (the frame pairs): the grouped sums then cover the groups [0,
+    shared) only and are summed over the ranks. Otherwise every group lies
+    on this rank whole (the patches) and its sums stay local.
     """
 
     def __init__(self, dim: int, matmul_threshold: int = 256):
@@ -124,25 +140,35 @@ class SoftAgg(nn.Module):
         self.Dense_1 = nn.Linear(dim, dim)
         self.Dense_2 = nn.Linear(dim, dim)
 
-    def forward(self, x, seg, num_segments: int, valid=None, order=None):
+    def forward(self, x, seg, num_segments: int, valid=None, order=None, group=None,
+                shared: int = 0):
         fx = self.Dense_0(x)
         gx = self.Dense_1(x)
+        n = shared or num_segments  # the rows of the grouped sums
+
+        def gsum(*args):
+            out = grouped_sum(*args)
+            return group.sum(out)[0] if shared else out
+
         if num_segments >= self.matmul_threshold:
             g32 = gx.to(torch.float32)
             masked = g32 if valid is None else torch.where(
                 valid[:, None], g32, torch.full_like(g32, float("-inf")))
             m = masked.amax(dim=0)
+            if group is not None:
+                m = group.max(m)
             m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
             e = torch.exp(g32 - m[None])
             if valid is not None:
                 e = e * valid[:, None].to(e.dtype)
             # invalid rows carry e = 0, so they add nothing to their group
             payload = torch.cat([fx.to(torch.float32) * e, e], dim=1).to(x.dtype)
-            sums = grouped_sum(payload, seg, num_segments, order)
+            sums = gsum(payload, seg, n, order)
             y = (sums[:, : self.dim] / torch.clamp(sums[:, self.dim:], min=1e-9)).to(x.dtype)
         else:
-            w = segment_softmax(gx.to(torch.float32), seg, num_segments, valid).to(x.dtype)
+            w = segment_softmax(gx.to(torch.float32), seg, n, valid,
+                                group if shared else None).to(x.dtype)
             seg_safe = seg if valid is None else torch.where(
-                valid, seg, torch.full_like(seg, num_segments))
-            y = grouped_sum(fx * w, seg_safe, num_segments).to(x.dtype)
+                valid, seg, torch.full_like(seg, n))
+            y = gsum(fx * w, seg_safe, n).to(x.dtype)
         return self.Dense_2(y)[seg]

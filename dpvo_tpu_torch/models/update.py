@@ -34,7 +34,8 @@ class Update(nn.Module):
         self.head_w = nn.Linear(D, 2)
 
     def forward(self, net, inp, corr, ix, jx, mask_ix, mask_jx, kk_seg, ij_seg, valid,
-                num_segments: int, num_ij_segments: int = 0, kk_order=None, ij_order=None):
+                num_segments: int, num_ij_segments: int = 0, kk_order=None, ij_order=None,
+                group=None, ij_shared: int = 0):
         """One round of the recurrent edge-GNN.
 
         net [E,D] hidden state; inp [E,D] context; corr [E,CORR_WIDTH]
@@ -42,7 +43,10 @@ class Update(nn.Module):
         the same patch (masked by mask_ix/mask_jx); kk_seg/ij_seg [E]
         dense group ids; valid [E] edge mask; kk_order/ij_order [E]
         optional stable argsorts of kk_seg/ij_seg (the topology ships them;
-        else SoftAgg sorts on the device).
+        else SoftAgg sorts on the device). group (``parallel.shard.
+        EdgeSplit``): the rows are this rank's share of a training unroll
+        split by patch, kk_seg numbering this rank's patches and ij_seg the
+        frame pairs of every rank, ij_shared of them (SoftAgg's ``shared``).
 
         Returns (net', delta [E,2] f32, weight [E,2] f32).
         """
@@ -53,8 +57,8 @@ class Update(nn.Module):
         net = net + self.c2(mask_jx[:, None].to(net.dtype) * net[jx])
 
         n_ij = num_ij_segments or num_segments
-        net = net + self.agg_kk(net, kk_seg, num_segments, valid, kk_order)
-        net = net + self.agg_ij(net, ij_seg, n_ij, valid, ij_order)
+        net = net + self.agg_kk(net, kk_seg, num_segments, valid, kk_order, group)
+        net = net + self.agg_ij(net, ij_seg, n_ij, valid, ij_order, group, ij_shared)
 
         net = self.GatedResidual_0(self.LayerNorm_2(net))
         net = self.GatedResidual_1(self.LayerNorm_3(net))

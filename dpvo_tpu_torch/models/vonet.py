@@ -19,6 +19,15 @@ the SPD kernel, each differentiable. ``remat`` checkpoints each unroll
 step (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``);
 the hidden state ``net_full`` is not detached between steps, so its
 gradient crosses the whole unroll, as in JAX.
+
+With a mesh whose edge axis has more than one rank (``vo_forward(...,
+mesh=)``), each rank computes the edges of the patches it owns
+(``owned_topo``): reprojection, correlation, the update operator, its
+part of BA's normal equations and its supervised edges. The encoders,
+the poses and the depths stay whole on every rank; SoftAgg's frame-pair
+sums, its softmax shifts and BA's normal equations are reduced over the
+edge group (``parallel.shard.EdgeSplit``), where the JAX package's
+``edge_shard`` annotations let XLA insert the collectives.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from dpvo_tpu_torch.lie import se3
 from dpvo_tpu_torch.models.patchifier import draw_count, random_candidates, select_centroids
 from dpvo_tpu_torch.ops.corr import avg_pool2d_nhwc
 from dpvo_tpu_torch.ops.corr_cuda import corr_features_train
+from dpvo_tpu_torch.parallel.shard import edge_split, owned_edges
 from dpvo_tpu_torch.runtime.topology import neighbors
 
 
@@ -96,6 +106,28 @@ def build_schedule(F: int, M: int, STEPS: int, init_frames: int = 8) -> List[Ste
     return steps
 
 
+def owned_topo(st: StepTopo, rank: int, size: int) -> StepTopo:
+    """The edges of st that rank ``rank`` of an edge axis of ``size`` ranks
+    owns (``parallel.shard.owned_edges``: by patch), in their order: kk, jj,
+    ii and the masks restricted; kk_seg the dense rank of the owned kk (the
+    patches are this rank's alone); ij_seg st's frame-pair ids, which every
+    rank shares; ix/jx and sup remapped to owned rows (a patch's
+    neighbours are edges of the same patch). The edge list only grows at
+    its end, so a step's owned edges lead the next step's. Raises where the
+    rank owns no edge."""
+    own = owned_edges(st.kk, rank, size)
+    if own.size == 0:
+        raise ValueError(f"owned_topo: edge rank {rank} of {size} owns none of a step's "
+                         f"{len(st.kk)} edges (more edge ranks than patches a frame?)")
+    row = np.full(len(st.kk), -1, np.int64)
+    row[own] = np.arange(own.size)
+    sup = row[st.sup]
+    _, kk_seg = np.unique(st.kk[own], return_inverse=True)
+    return StepTopo(st.kk[own], st.jj[own], st.ii[own], kk_seg.astype(np.int32), st.ij_seg[own],
+                    row[st.ix[own]], row[st.jx[own]], st.mask_ix[own], st.mask_jx[own], st.n,
+                    st.new_frame, sup[sup >= 0])
+
+
 def step_tensors(st: StepTopo, device) -> Dict[str, torch.Tensor]:
     """A step's index arrays on the device (int32, as the kernels take
     them; ``sup`` int64), with the host's stable sort orders: kk's (BA's
@@ -141,9 +173,10 @@ def _apply(module, prefix: str, params, *args, **kwargs):
 
 def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, STEPS: int = 18,
                structure_only: bool = False, frozen_encoders: bool = False, remat: bool = True,
-               params: Optional[Dict[str, torch.Tensor]] = None):
+               params: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
     """Returns a list of per-step supervision tuples (valid [Es], coords
-    [Es,P,P,2], coords_gt [Es,P,P,2], poses [F,7], n).
+    [Es,P,P,2], coords_gt [Es,P,P,2], poses [F,7], n) over the step's
+    supervised edges (with a split mesh, this rank's).
 
     nets: ``runtime/weights.Networks``; params: an optional flat dict of
     tensors used in place of its parameters (the train step passes a
@@ -153,7 +186,10 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
     as ``draw_inputs`` gives them for ``cfg.CENTROID_SEL_STRAT`` (the
     GRADIENT_BIAS candidates scored on each frame's normalized image in
     the configuration's dtype, as the JAX patchifier scores them).
-    ``frozen_encoders`` runs the patchifier without a gradient."""
+    ``frozen_encoders`` runs the patchifier without a gradient. mesh: a
+    (data, edge) mesh (``parallel.make_mesh``) whose edge axis splits the
+    unroll (see the module docstring); every rank of the edge group passes
+    the same inputs and parameters, and takes the same collectives."""
     F, H, W, _ = images.shape
     M, P = cfg.PATCHES_PER_FRAME, cfg.P
     dev = images.device
@@ -179,7 +215,10 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
     patches = torch.cat([patches[:, :2], d0[:, None, None, None].expand(F * M, 1, P, P)], 1)
 
     schedule = build_schedule(F, M, STEPS)
-    net_full = torch.zeros((len(schedule[-1].kk), cfg.DIM), dtype=fdt, device=dev)
+    split = edge_split(mesh)
+    topos = schedule if split is None else [owned_topo(st, split.rank, split.size)
+                                            for st in schedule]
+    net_full = torch.zeros((len(topos[-1].kk), cfg.DIM), dtype=fdt, device=dev)
 
     Gs = se3.identity((F,), device=dev)
     if structure_only:
@@ -191,12 +230,15 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
     c = P // 2
 
     traj = []
-    for s, st in enumerate(schedule):
-        Es = len(st.kk)
-        t = step_tensors(st, dev)
+    for s, (st, tp) in enumerate(zip(schedule, topos)):
+        Es, E = len(st.kk), len(tp.kk)  # the step's edges; this rank's
+        t = step_tensors(tp, dev)
         ii, jj, kk = t["ii"], t["jj"], t["kk"]
+        # the frame-pair groups, which a split sums over its ranks
+        group = {} if split is None else dict(group=split, ij_shared=int(st.ij_seg.max()) + 1)
 
-        def step_body(Gs, patches, net_full, st=st, Es=Es, t=t, ii=ii, jj=jj, kk=kk, s=s):
+        def step_body(Gs, patches, net_full, st=st, Es=Es, E=E, t=t, ii=ii, jj=jj, kk=kk, s=s,
+                      group=group):
             Gs, patches = Gs.detach(), patches.detach()
             if st.new_frame > 0:
                 nf = st.new_frame
@@ -217,13 +259,13 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
             corr = corr_features_train(gmap, pyr1, pyr2, coords.to(torch.float32).contiguous(),
                                        kk, jj, valid, t["kk_order"], t["jj_order"],
                                        radius=cfg.CORR_RADIUS)
-            corr = corr.reshape(Es, -1).to(fdt)
+            corr = corr.reshape(E, -1).to(fdt)
 
             net, delta, weight = _apply(
-                nets.update, "update", params, net_full[:Es], imap[kk.long()].to(fdt), corr,
+                nets.update, "update", params, net_full[:E], imap[kk.long()].to(fdt), corr,
                 t["ix"], t["jx"], t["mask_ix"], t["mask_jx"], t["kk_seg"], t["ij_seg"], valid,
-                num_segments=Es, kk_order=t["kk_order"], ij_order=t["ij_order"])
-            net_full = torch.cat([net, net_full[Es:]])
+                num_segments=Es, kk_order=t["kk_order"], ij_order=t["ij_order"], **group)
+            net_full = torch.cat([net, net_full[E:]])
 
             target = coords[:, c, c, :].to(torch.float32) + delta
             wgt = weight * valid[:, None]
@@ -235,7 +277,8 @@ def vo_forward(nets, cfg: Config, images, poses_gt, disps, intrinsics, draws, ST
             Gs, depths = ba_solver.ba(
                 Gs, ctr, intr_all, target, wgt, valid, ii, jj, kk, 1, nfree, bounds, 1e-4,
                 W=F, Md=F * M, iterations=2, ep=10.0, lm=1e-4, res_clip=250.0,
-                clamp_mode="train", kd_order=t["kk_order"])
+                clamp_mode="train", kd_order=t["kk_order"],
+                allsum=ba_solver.no_sum if split is None else split.sum)
             dz = depths - ctr[:, 2]
             patches = torch.cat([patches[:, :2], patches[:, 2:] + dz[:, None, None, None]], 1)
 

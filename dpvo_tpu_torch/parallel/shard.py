@@ -12,12 +12,18 @@ partial results over that axis's process group with ``all_reduce``
 gradients). A mesh reaches the code that uses it as an explicit ``mesh=``
 argument: the JAX package's ``mesh_context`` switches on its layout
 annotations, which the port does not have.
+
+Training splits each clip's unroll over the edge axis (``edge_split``):
+each rank computes the edges of the patches it owns (``owned_edges``), and
+what crosses ranks goes through ``all_sum`` (differentiable) or
+``all_max`` (a softmax's shift, no gradient).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -88,20 +94,88 @@ def replicate(nets: torch.nn.Module, mesh: Optional[DeviceMesh]) -> torch.nn.Mod
     return nets
 
 
+class _AllSum(torch.autograd.Function):
+    """all_reduce SUM over a process group, whose adjoint is the same
+    all_reduce of the gradient: where each rank's loss is its share of the
+    whole, the gradient of a sum that every rank holds is the sum of the
+    ranks' gradients (``torch.distributed.nn.functional.all_reduce``
+    computes the same and is deprecated)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
 def all_sum(mesh: DeviceMesh, axis: str):
     """(x1, ..., xn) -> (their sums over the mesh axis's ranks): the port's
-    ``psum``, one ``all_reduce`` of the tensors' concatenation, or of the
-    one tensor in place (the
-    ``allsum`` of ``ba/solver.assemble_normal_eqs`` and
-    ``ba/gba_sparse.gba``, whose default ``no_sum`` is one rank's)."""
+    ``psum``, one ``all_reduce`` of the tensors' concatenation (of the one
+    tensor), differentiable (``_AllSum``). The ``allsum`` of
+    ``ba/solver.assemble_normal_eqs`` and ``ba/gba_sparse.gba``, whose
+    default ``no_sum`` is one rank's."""
     group = mesh.get_group(axis)
 
     def allsum(*xs):
         if len(xs) == 1:
-            dist.all_reduce(xs[0], group=group)
-            return xs
-        flat = torch.cat([x.reshape(-1) for x in xs])
-        dist.all_reduce(flat, group=group)
+            return (_AllSum.apply(group, xs[0]),)
+        flat = _AllSum.apply(group, torch.cat([x.reshape(-1) for x in xs]))
         return tuple(f.reshape(x.shape) for f, x in zip(flat.split([x.numel() for x in xs]), xs))
 
     return allsum
+
+
+def all_max(mesh: DeviceMesh, axis: str):
+    """x -> its elementwise maximum over the mesh axis's ranks, without a
+    gradient (a softmax's shift, on which the softmax does not depend)."""
+    group = mesh.get_group(axis)
+
+    def allmax(x):
+        x = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+        return x
+
+    return allmax
+
+
+def owned_edges(kk: np.ndarray, rank: int, size: int) -> np.ndarray:
+    """The edges (indices into kk, in order) that rank ``rank`` of an edge
+    axis of ``size`` ranks owns in a split training unroll: those of the
+    patches kk with kk % size == rank. A patch's edges then stay on one rank
+    (the update operator's temporal neighbours, SoftAgg by patch and BA's
+    depth blocks need no other rank), and since every patch of a frame has
+    the same edges in ``models/vonet.build_schedule``, a rank holds the
+    same share of every step's edges once PATCHES_PER_FRAME is a multiple
+    of ``size``. The JAX package's ``edge_shard`` splits the edge axis into
+    contiguous blocks; the values do not depend on the split, only the
+    order of the sums that cross ranks."""
+    return np.nonzero(np.asarray(kk) % size == rank)[0]
+
+
+class EdgeSplit(NamedTuple):
+    """A rank's part in a training unroll split over the mesh's edge axis:
+    its index on the axis, the axis's size, and the axis's ``all_sum``
+    (differentiable) and ``all_max`` (no gradient)."""
+
+    rank: int
+    size: int
+    sum: Callable
+    max: Callable
+
+
+def edge_split(mesh: Optional[DeviceMesh]) -> Optional[EdgeSplit]:
+    """The split of the mesh's edge axis; None without a mesh or with one
+    rank on the axis (the unsplit unroll)."""
+    r, k = edge_rank(mesh)
+    if k == 1:
+        return None
+    if not dist.is_initialized():
+        raise RuntimeError(f"edge_split: an edge axis of {k} ranks needs a process group")
+    return EdgeSplit(r, k, all_sum(mesh, "edge"), all_max(mesh, "edge"))

@@ -15,6 +15,12 @@ whole BA path from the gradient: in both packages only the unroll steps
 before the pose term starts (0 and 1) train the network, unless
 ``structure_only`` (ROADMAP §3). The port keeps the reference's
 gradients, on the card too (see ``pose_error``).
+
+A training unroll split over the mesh's edge axis (``clip_loss(...,
+mesh=)``) follows one rule: the sum over the edge ranks of each rank's loss
+and metrics is the single-process loss and metrics. A rank's flow terms
+sum its own supervised edges over the count of all ranks' (``all_sum``,
+no gradient); the pose terms, on poses every rank holds, count 1/ne each.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from dpvo_tpu_torch.lie import se3
+from dpvo_tpu_torch.parallel.shard import edge_split
 
 
 def _norm(x):
@@ -69,27 +76,40 @@ def pose_error(Gs, Ps, n: int):
     return torch.sum(tr * kf) / denom, torch.sum(ro * kf) / denom
 
 
-def flow_error(valid, coords, coords_gt, P: int):
+def flow_error(valid, coords, coords_gt, P: int, count=None):
     """Masked mean of the min over patch pixels of the flow error; also
-    the per-edge minima and the mask."""
+    the per-edge minima and the mask. count: the mask's count over every
+    rank of a split unroll (then the mean's share of these edges)."""
     e = _norm(coords - coords_gt)  # [Es, P, P]
     e_min = torch.amin(e.reshape(e.shape[0], P * P), dim=-1)  # splits ties' gradient, as jnp.min
     v = (valid > 0.5).to(e_min.dtype)
-    return torch.sum(e_min * v) / torch.clamp(torch.sum(v), min=1.0), e_min, v
+    if count is None:
+        count = torch.sum(v)
+    return torch.sum(e_min * v) / torch.clamp(count, min=1.0), e_min, v
 
 
-def clip_loss(traj, poses_gt, P: int, flow_weight=0.1, pose_weight=10.0, structure_only=False):
+def clip_loss(traj, poses_gt, P: int, flow_weight=0.1, pose_weight=10.0, structure_only=False,
+              mesh=None):
     """Sum of the per-step losses over the unroll; the metrics (flow, tr,
-    ro, px1) of the last step."""
+    ro, px1) of the last step. mesh: the mesh whose edge axis split the
+    unroll (``vo_forward(..., mesh=)``): this rank's share of them."""
+    split = edge_split(mesh)
+    counts = [None] * len(traj)
+    if split is not None:  # every step's supervised count, in one all_reduce
+        counts = split.sum(torch.stack([torch.sum(valid > 0.5) for valid, *_ in traj])
+                           .to(poses_gt.dtype))[0]
     loss = 0.0
     metrics = {}
     for i, (valid, coords, coords_gt, Gs, n) in enumerate(traj):
-        fe, e_min, v = flow_error(valid, coords, coords_gt, P)
+        fe, e_min, v = flow_error(valid, coords, coords_gt, P, counts[i])
         loss = loss + flow_weight * fe
         tr, ro = pose_error(Gs, poses_gt, n)
+        if split is not None:
+            tr, ro = tr / split.size, ro / split.size
         if not structure_only and i >= 2:
             loss = loss + pose_weight * (tr + ro)
         if i == len(traj) - 1:
-            px1 = torch.sum((e_min < 0.25) * v) / torch.clamp(torch.sum(v), min=1.0)
+            count = torch.sum(v) if split is None else counts[i]
+            px1 = torch.sum((e_min < 0.25) * v) / torch.clamp(count, min=1.0)
             metrics = {"flow": fe, "tr": tr, "ro": ro, "px1": px1}
     return loss, metrics

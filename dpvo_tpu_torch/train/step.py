@@ -11,10 +11,11 @@ encoders under ``--freeze_encoders``: optax's ``multi_transform`` with
 ``set_to_zero``) get a zero update, no Adam state and no decay, and the
 global norm is taken over the trained leaves only.
 
-Data-parallel training over a mesh of processes (``make_train_step(...,
-mesh=)``, ``apps/train.py --mesh``) averages the gradients over the mesh's
-data axis, where the JAX package shards the batch over its mesh and lets
-XLA reduce (``dpvo_tpu/train/step.py``).
+Training over a (data, edge) mesh of processes (``make_train_step(...,
+mesh=)``, ``apps/train.py --mesh``) splits each clip's unroll over the
+edge axis and averages the gradients over the data axis, where the JAX
+package shards the batch and annotates the unroll's edges and lets XLA
+partition and reduce (``dpvo_tpu/train/step.py``).
 
 Master parameters stay f32 (flax keeps its parameters f32 under
 ``dtype=bf16``); with ``MIXED_PRECISION`` the unroll runs on a
@@ -31,7 +32,7 @@ import torch
 
 from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.models.vonet import draw_inputs, vo_forward
-from dpvo_tpu_torch.parallel.shard import all_sum, axis_rank, local_clips
+from dpvo_tpu_torch.parallel.shard import all_sum, axis_rank, edge_split, local_clips
 from dpvo_tpu_torch.train.loss import clip_loss
 
 
@@ -150,17 +151,19 @@ def _clip_draws(cfg: Config, batch, draws, STEPS: int, device):
 
 def batch_loss(nets, cfg: Config, batch, draws, STEPS: int, flow_weight: float,
                pose_weight: float, structure_only: bool = False, frozen_encoders: bool = False,
-               remat: bool = True, params=None):
+               remat: bool = True, params=None, mesh=None):
     """Mean clip loss and mean metrics over the batch (loops over its
-    clips where JAX vmaps)."""
+    clips where JAX vmaps); with a mesh whose edge axis splits the unroll,
+    this rank's share of them."""
     losses, mets = [], []
     for b, d in enumerate(draws):
         traj = vo_forward(nets, cfg, batch["images"][b], batch["poses"][b], batch["disps"][b],
                           batch["intrinsics"][b], d, STEPS=STEPS, structure_only=structure_only,
-                          frozen_encoders=frozen_encoders, remat=remat, params=params)
+                          frozen_encoders=frozen_encoders, remat=remat, params=params,
+                          mesh=mesh)
         loss, m = clip_loss(traj, batch["poses"][b].to(torch.float32), cfg.P,
                             flow_weight=flow_weight, pose_weight=pose_weight,
-                            structure_only=structure_only)
+                            structure_only=structure_only, mesh=mesh)
         losses.append(loss)
         mets.append(m)
     metrics = {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
@@ -175,10 +178,15 @@ def _forward_params(nets, cfg: Config):
     return {k: p.to(torch.bfloat16) for k, p in nets.named_parameters()}
 
 
-def _data_mean(tensors: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """Each tensor averaged over the mesh's data axis, in one all_reduce."""
+def _mesh_reduce(tensors: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Each tensor summed over the mesh's edge axis where it splits the
+    unroll (each rank holds its share), then averaged over the data axis:
+    one all_reduce each."""
     keys = list(tensors)
-    sums = all_sum(mesh, "data")(*(tensors[k].to(torch.float32) for k in keys))
+    xs = [tensors[k].to(torch.float32) for k in keys]
+    if edge_split(mesh) is not None:
+        xs = all_sum(mesh, "edge")(*xs)
+    sums = all_sum(mesh, "data")(*xs)
     n = axis_rank(mesh, "data")[1]
     return {k: (x / n).to(tensors[k].dtype) for k, x in zip(keys, sums)}
 
@@ -200,14 +208,21 @@ def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1
     seconds of forward, backward and optimizer when ``train_step.timed``
     is set (each phase then ends in a device synchronize).
 
-    mesh: a (data, edge) mesh (``parallel.make_mesh``) for data-parallel
-    training: every rank passes the same global batch and draws (or the
-    same generator state) and replicated parameters; each computes the
-    loss of its data rank's clips (``parallel.local_clips``), and the
-    gradients and metrics are averaged over the data axis before the
+    mesh: a (data, edge) mesh (``parallel.make_mesh``): every rank passes
+    the same global batch and draws (or the same generator state) and
+    replicated parameters. Each data rank takes its clips
+    (``parallel.local_clips``); the ranks of one edge group split each of
+    those clips' unroll by patch (``models/vonet.vo_forward``), each
+    computing its share of the loss. The gradients and metrics are summed
+    over the edge axis and averaged over the data axis before the
     optimizer, so every rank takes the single-process step of the global
-    batch (its loss is the mean over clips). The ranks of one edge group
-    compute the same clips."""
+    batch (its loss is the mean over clips), up to the order of the sums
+    that cross ranks. The edge axis may not exceed PATCHES_PER_FRAME (a
+    rank would own no patch)."""
+    ne = axis_rank(mesh, "edge")[1]
+    if ne > cfg.PATCHES_PER_FRAME:
+        raise ValueError(f"make_train_step: an edge axis of {ne} ranks splits the unroll by "
+                         f"patch, and a frame has {cfg.PATCHES_PER_FRAME} patches")
 
     def sync(dev):
         if train_step.timed and dev.type == "cuda":
@@ -228,14 +243,14 @@ def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1
         t0 = sync(dev)
         loss, metrics = batch_loss(nets, cfg, batch, draws, STEPS, flow_weight, pose_weight,
                                    structure_only, frozen_encoders, remat,
-                                   _forward_params(nets, cfg))
+                                   _forward_params(nets, cfg), mesh)
         t1 = sync(dev)
         loss.backward()
         t2 = sync(dev)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         if mesh is not None:
-            grads = _data_mean(grads, mesh)
+            grads = _mesh_reduce(grads, mesh)
         updates, opt_state = tx.update(grads, opt_state, {k: p.detach()
                                                           for k, p in params.items()})
         apply_updates({k: p.data for k, p in params.items()}, updates, lr_scale)
@@ -244,7 +259,7 @@ def make_train_step(cfg: Config, tx: Optimizer, STEPS: int = 18, flow_weight=0.1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         if mesh is not None:
-            metrics = _data_mean(metrics, mesh)
+            metrics = _mesh_reduce(metrics, mesh)
         metrics["gnorm"] = global_norm(grads.values())
         return nets, opt_state, metrics
 

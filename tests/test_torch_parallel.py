@@ -11,6 +11,10 @@ JAX), against the single-process port and the JAX package computed here.
   loop-closure setup against the single-device tracker;
 - a two-rank data-parallel train step against the single-process step of
   the same global batch;
+- the edge split of training: owned_topo's partition of each unroll step,
+  SoftAgg split over threads, and a two-rank edge-split train step against
+  the single-process step and against the JAX package's train step on a
+  (1, 2) mesh of host devices;
 - make_mesh's world-size check, init_distributed's environment and
   idempotence.
 """
@@ -47,6 +51,12 @@ TRACK_SPEC = dict(min_separation=8, scene=dict(ht=HT, wd=WD, n_frames=20, depth=
 # tests/test_torch_train_e2e.py's tiny training configuration, two clips
 TRAIN_CFG = dict(PATCHES_PER_FRAME=4, DIM=32, FDIM=16, MIXED_PRECISION=False, BUFFER_SIZE=16,
                  E_MAX=512, M_OPT_MAX=64, PMEM=8, MEM=8)
+# the edge-split step's draws: JAX key EDGE_KEY split over the two clips as
+# the JAX train step splits it (clip 0's step-3 coin is up, so that step
+# drops frame 0's edges), with build_schedule's init_frames 3 (frame 3 joins
+# at step 3), as in tests/test_torch_train_e2e.py
+EDGE_KEY = 1
+EDGE_INIT_FRAMES = 3
 
 
 def _tcfg_dict(jcfg):
@@ -77,13 +87,23 @@ def _train_batch(seed=0, B=2):
             for i, k in enumerate(("images", "poses", "disps", "intrinsics"))}
 
 
+def _jax_batch_draws(key, B=2):
+    """vo_forward's draws for each clip of a B-clip batch from JAX key
+    ``key``, as the JAX train step splits it."""
+    from test_torch_train_e2e import jax_draws
+
+    return [jax_draws(k) for k in jax.random.split(jax.random.PRNGKey(key), B)]
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The two workers' results and their inputs."""
     workdir = tmp_path_factory.mktemp("ranks")
     inputs = dict(ba=_ba_problem(),
                   tracker=dict(TRACK_SPEC, cfg=_tcfg_dict(small_cfg(**TRACK_CFG))),
-                  train=dict(cfg=TRAIN_CFG, steps=4, seed=3, batch=_train_batch()))
+                  train=dict(cfg=TRAIN_CFG, steps=4, seed=3, batch=_train_batch()),
+                  train_edge=dict(cfg=TRAIN_CFG, steps=4, init_frames=EDGE_INIT_FRAMES,
+                                  batch=_train_batch(), draws=_jax_batch_draws(EDGE_KEY)))
     torch.save(inputs, os.path.join(workdir, "inputs.pt"))
     return worker.spawn(workdir, WORLD, timeout=WORKER_TIMEOUT_S), inputs
 
@@ -96,14 +116,16 @@ class Lockstep:
         self.parts = [None] * k
         self.barrier = threading.Barrier(k, timeout=60)
 
-    def allsum(self, rank):
+    def allsum(self, rank, op=torch.Tensor.add_):
+        """rank's reduction of tensors over the threads (op: in place,
+        ``add_`` for a sum)."""
         def f(*xs):
             self.parts[rank] = xs
             self.barrier.wait()
             total = tuple(x.clone() for x in self.parts[0])
             for part in self.parts[1:]:
                 for t, x in zip(total, part):
-                    t += x
+                    op(t, x)
             self.barrier.wait()
             return total
         return f
@@ -242,9 +264,9 @@ def test_data_parallel_train_step_matches_single_process(ranks):
     for rounding, as in the conv biases before an instance norm, moves
     either way: measured 6.4e-6, twice the step, in the first conv.)"""
     results, inputs = ranks
-    params, metrics = worker.run_train(inputs["train"])
+    params, metrics, _ = worker.run_train(inputs["train"])
     for r in results:
-        p_r, m_r = r["train"]
+        p_r, m_r, _ = r["train"]
         flat = lambda d: torch.cat([d[k].reshape(-1) for k in sorted(params)])
         assert (flat(p_r) - flat(params)).norm() <= 1e-5 * flat(params).norm()
         assert set(m_r) == set(metrics)
@@ -286,12 +308,202 @@ def _mean_clip_gnorm(spec):
     return float(global_norm([(a + b) / 2 for a, b in zip(*grads)]))
 
 
+def _flat(params, keys):
+    return torch.cat([params[k].reshape(-1) for k in keys])
+
+
+def test_edge_split_train_step_matches_single_process(ranks):
+    """A two-rank edge-split train step (a (1, 2) mesh: each clip's unroll
+    split by patch) against the single-process step of the same two-clip
+    batch and draws: all the parameters within 1e-5 of their norm, the loss
+    and metrics within rtol 1e-4 and the gradient norm within 1% (the
+    frame-pair and BA sums that cross ranks add in another order, and the
+    unroll amplifies rounding, as in the data-parallel test), the two
+    ranks' parameters equal. Each rank's correlation took exactly half of
+    every unroll step's edges, in the forward pass and in its recomputation
+    in the backward pass."""
+    results, inputs = ranks
+    spec = inputs["train_edge"]
+    params, metrics, edges = worker.run_train(spec)
+    keys = sorted(params)
+    # two clips' unroll steps, then each step recomputed in the backward pass
+    assert edges[:8] == [36, 36, 36, 64] * 2 and sorted(edges[8:]) == sorted(edges[:8])
+    assert metrics["tr"] > 0 and metrics["gnorm"] > 0
+    for r in results:
+        p_r, m_r, _ = r["train_edge"]
+        assert (_flat(p_r, keys) - _flat(params, keys)).norm() <= 1e-5 * _flat(params, keys).norm()
+        assert set(m_r) == set(metrics)
+        for k, v in metrics.items():
+            np.testing.assert_allclose(m_r[k], v, rtol=1e-2 if k == "gnorm" else 1e-4, err_msg=k)
+    (p0, _, e0), (p1, _, e1) = results[0]["train_edge"], results[1]["train_edge"]
+    assert len(e0) == len(e1) == len(edges)
+    for a, b, n in zip(e0, e1, edges):
+        assert a == b and a + b == n
+    for k in keys:
+        assert torch.equal(p0[k], p1[k])
+
+
+def test_edge_split_train_step_matches_jax(ranks, monkeypatch):
+    """The two-rank edge-split step against the JAX package's train step
+    under mesh_context on a (1, 2) mesh of two of the host's CPU devices
+    (its edge_shard annotations split each clip's unroll edges; tests/
+    test_train.py runs that step on (2, 4)), on the same batch, weights
+    (params_to_jax) and draws (JAX key EDGE_KEY), build_schedule's
+    init_frames EDGE_INIT_FRAMES on both sides, the JAX side without remat
+    (the same values, a shorter compile). The loss and metrics within
+    tests/test_torch_train_e2e.py's LOSS_RTOL (3e-3: f32 in another order
+    carried through 4 BA rounds), the gradient norm within its GRAD_REL
+    (2e-2, its bound on each leaf's gradient error, so on the norm's)."""
+    from dpvo_tpu.config import Config as JConfig
+    from dpvo_tpu.models import vonet as jvonet
+    from dpvo_tpu.parallel import data_sharding, make_mesh, mesh_context, replicated
+    from dpvo_tpu.train import make_optimizer, make_train_step
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.runtime.weights import init_networks, params_to_jax
+    from test_torch_train_e2e import GRAD_REL, LOSS_RTOL, jax_tree
+
+    results, inputs = ranks
+    spec = inputs["train_edge"]
+    orig = jvonet.build_schedule
+    monkeypatch.setattr(jvonet, "build_schedule",
+                        lambda F, M, S, init_frames=8: orig(F, M, S, EDGE_INIT_FRAMES))
+    state = init_networks(Config(**TRAIN_CFG), torch.Generator().manual_seed(0)).state_dict()
+    params = jax_tree(params_to_jax(state))
+    tx, _ = make_optimizer(total_steps=100)
+    mesh = make_mesh(1, 2)
+    with jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh:
+        with mesh_context(mesh):
+            step = make_train_step(JConfig(**TRAIN_CFG), tx, STEPS=spec["steps"], remat=False)
+            batch = {k: jax.device_put(jnp.asarray(v), data_sharding(mesh, v.ndim))
+                     for k, v in spec["batch"].items()}
+            p = jax.device_put(params, replicated(mesh))
+            _, _, m = step(p, tx.init(p), batch, jax.random.PRNGKey(EDGE_KEY))
+    want = {k: float(v) for k, v in m.items()}
+    assert np.isfinite(want["loss"]) and want["gnorm"] > 0
+    for r in results:
+        got = r["train_edge"][1]
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=GRAD_REL if k == "gnorm" else LOSS_RTOL,
+                                       atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("F,M,ne", [(4, 4, 2), (15, 80, 2), (6, 6, 4)])
+def test_owned_topo_partitions_each_step(F, M, ne):
+    """owned_topo over ne edge ranks, at each unroll step of build_schedule:
+    every edge on exactly one rank, its patch's; each rank's share equal
+    where ne divides M; a step's owned edges leading the next step's (the
+    rows of net_full); kk_seg numbering the rank's patches, ij_seg the
+    step's frame pairs, ix / jx / sup the step's own, as owned rows."""
+    from dpvo_tpu_torch.models.vonet import build_schedule, owned_topo
+    from dpvo_tpu_torch.parallel import owned_edges
+
+    prev = [None] * ne
+    for st in build_schedule(F, M, 18):
+        seen = np.zeros(len(st.kk), int)
+        for r in range(ne):
+            tp, own = owned_topo(st, r, ne), owned_edges(st.kk, r, ne)
+            seen[own] += 1
+            assert (st.kk[own] % ne == r).all()
+            for a, b in ((tp.kk, st.kk), (tp.jj, st.jj), (tp.ii, st.ii), (tp.ij_seg, st.ij_seg),
+                         (tp.mask_ix, st.mask_ix), (tp.mask_jx, st.mask_jx)):
+                np.testing.assert_array_equal(a, b[own])
+            np.testing.assert_array_equal(own[tp.ix], st.ix[own])
+            np.testing.assert_array_equal(own[tp.jx], st.jx[own])
+            np.testing.assert_array_equal(own[tp.sup], np.intersect1d(st.sup, own))
+            np.testing.assert_array_equal(np.unique(tp.kk)[tp.kk_seg], tp.kk)
+            assert (tp.n, tp.new_frame) == (st.n, st.new_frame)
+            if M % ne == 0:
+                assert len(tp.kk) * ne == len(st.kk)
+            if prev[r] is not None:
+                np.testing.assert_array_equal(tp.kk[:len(prev[r].kk)], prev[r].kk)
+                np.testing.assert_array_equal(tp.jj[:len(prev[r].jj)], prev[r].jj)
+            prev[r] = tp
+        assert (seen == 1).all()
+    with pytest.raises(ValueError, match="owns none"):
+        owned_topo(build_schedule(2, 2, 1)[0], 4, 5)
+
+
+@pytest.mark.parametrize("num_segments", [64, 300])  # SoftAgg's two branches
+def test_soft_agg_split_over_threads_matches_whole(num_segments):
+    """Update's two SoftAggs on 320 rows (40 patches, 10 frame pairs, a
+    tenth of the rows invalid), whole, and split by patch over two threads
+    (the EdgeSplit interface on Lockstep): agg_kk on each thread's patches
+    numbered locally, agg_ij on the shared frame-pair ids with the sums over
+    the threads; each thread's rows within 1e-6 of the whole (f32 sums in
+    another order)."""
+    from dpvo_tpu_torch.models.blocks import SoftAgg
+    from dpvo_tpu_torch.parallel import owned_edges
+
+    g = torch.Generator().manual_seed(0)
+    D, E = 16, 320
+    agg_kk, agg_ij = SoftAgg(D), SoftAgg(D)
+    x = torch.randn(E, D, generator=g)
+    kk = torch.randint(0, 40, (E,), generator=g)
+    ij = kk % 10
+    valid = torch.rand(E, generator=g) > 0.1
+    _, kk_seg = torch.unique(kk, return_inverse=True)
+    with torch.no_grad():
+        want = (agg_kk(x, kk_seg, num_segments, valid), agg_ij(x, ij, num_segments, valid))
+    sums, maxes = Lockstep(2), Lockstep(2)
+    got = [None, None]
+
+    class Split:
+        def __init__(self, r):
+            self.sum = sums.allsum(r)
+            self.max = lambda m: maxes.allsum(r, lambda t, y: torch.maximum(t, y, out=t))(m)[0]
+
+    def run(r):
+        own = torch.as_tensor(owned_edges(kk.numpy(), r, 2))
+        _, seg = torch.unique(kk[own], return_inverse=True)
+        with torch.no_grad():
+            got[r] = (own, agg_kk(x[own], seg, num_segments, valid[own], group=Split(r)),
+                      agg_ij(x[own], ij[own], num_segments, valid[own], group=Split(r),
+                             shared=10))
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and all(x is not None for x in got)
+    for own, a_kk, a_ij in got:
+        np.testing.assert_allclose(a_kk.numpy(), want[0][own].numpy(), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(a_ij.numpy(), want[1][own].numpy(), atol=1e-6, rtol=0)
+
+
+class _StubMesh:
+    """A (data, edge) DeviceMesh's sizes, without a process group."""
+
+    mesh_dim_names = ("data", "edge")
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def size(self, dim):
+        return self.shape[dim]
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+def test_make_train_step_refuses_more_edge_ranks_than_patches():
+    """An edge axis larger than PATCHES_PER_FRAME would leave a rank with no
+    patch: make_train_step raises."""
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.train import make_optimizer, make_train_step
+
+    tx, _ = make_optimizer(total_steps=100)
+    with pytest.raises(ValueError, match="edge axis of 5 ranks"):
+        make_train_step(Config(**TRAIN_CFG), tx, STEPS=4, mesh=_StubMesh((1, 5)))
+
+
 def test_mesh_and_init_distributed(monkeypatch):
     """init_distributed joins a one-process gloo group from torchrun's
     environment and a second call is a no-op; make_mesh refuses a mesh
     whose size is not the world size, and process_local_batch a batch that
     does not split."""
-    from dpvo_tpu_torch.parallel import edge_range, local_clips, make_mesh
+    from dpvo_tpu_torch.parallel import edge_range, edge_split, local_clips, make_mesh
     from dpvo_tpu_torch.parallel.multihost import init_distributed, process_local_batch
 
     s = socket.socket()
@@ -311,6 +523,7 @@ def test_mesh_and_init_distributed(monkeypatch):
             make_mesh(1, 2)
         mesh = make_mesh(1, 1)
         assert mesh.mesh_dim_names == ("data", "edge") and edge_range(10, mesh) == (0, 10)
+        assert edge_split(mesh) is None  # one edge rank: the unsplit unroll
         batch = {"images": np.zeros((4, 2))}
         assert local_clips(batch, mesh)["images"].shape == (4, 2)
         assert process_local_batch(4, 2) == 2

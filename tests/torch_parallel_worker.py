@@ -13,7 +13,10 @@ of the port on them and writes its results to <dir>/rank<r>.pt:
 - tracker: a DPVO(mesh=) oracle loop-closure run (the parent's configuration
   and scene);
 - train: one step of ``make_train_step(mesh=)`` over a (world, 1) mesh,
-  data parallel, on the parent's global batch and generator seed.
+  data parallel, on the parent's global batch and generator seed;
+- train_edge: one step over a (1, world) mesh, each clip's unroll split
+  over the ranks, on the parent's batch and draws, with each unroll step's
+  edge count as this rank's correlation took it.
 
 With a device argument (``cuda``) only gba runs, on that device's tensors.
 """
@@ -112,9 +115,13 @@ def run_tracker(spec, mesh=None):
 
 def run_train(spec, mesh=None):
     """One train step of the parent's configuration on its global batch,
-    the draws from generator seed spec["seed"]: returns (parameters,
-    metrics as floats)."""
+    with its draws (spec["draws"], one dict a clip) or those of generator
+    seed spec["seed"], and build_schedule's init_frames spec["init_frames"]
+    where given: returns (parameters, metrics as floats, the edge count of
+    each correlation call in order: each clip's unroll steps, then their
+    recomputation in the backward pass)."""
     from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.models import vonet
     from dpvo_tpu_torch.runtime.weights import init_networks
     from dpvo_tpu_torch.train import make_optimizer, make_train_step
 
@@ -122,10 +129,24 @@ def run_train(spec, mesh=None):
     nets = init_networks(cfg, torch.Generator().manual_seed(0))
     tx, _ = make_optimizer(total_steps=100)
     step = make_train_step(cfg, tx, STEPS=spec["steps"], mesh=mesh)
-    nets, _, m = step(nets, tx.init({k: p.detach() for k, p in nets.named_parameters()}),
-                      spec["batch"], torch.Generator().manual_seed(spec["seed"]))
+    draws = spec["draws"] if "draws" in spec else torch.Generator().manual_seed(spec["seed"])
+    edges, corr, schedule = [], vonet.corr_features_train, vonet.build_schedule
+
+    def counted(gmap, pyr1, pyr2, coords, *args, **kw):
+        edges.append(coords.shape[0])
+        return corr(gmap, pyr1, pyr2, coords, *args, **kw)
+
+    vonet.corr_features_train = counted
+    if "init_frames" in spec:
+        vonet.build_schedule = lambda F, M, S, init_frames=8: schedule(F, M, S,
+                                                                        spec["init_frames"])
+    try:
+        nets, _, m = step(nets, tx.init({k: p.detach() for k, p in nets.named_parameters()}),
+                          spec["batch"], draws)
+    finally:
+        vonet.corr_features_train, vonet.build_schedule = corr, schedule
     return ({k: v.detach().clone() for k, v in nets.state_dict().items()},
-            {k: float(v) for k, v in m.items()})
+            {k: float(v) for k, v in m.items()}, edges)
 
 
 def spawn(workdir, world: int = 2, device: str = "cpu", timeout: float = 120.0):
@@ -173,7 +194,8 @@ def main(rank: int, world: int, workdir: str, device: str = "cpu"):
             out = {"gba": run_gba(gba_problem(), torch.device("cpu"), mesh=edge),
                    "ba": run_ba(inputs["ba"], mesh=edge),
                    "tracker": run_tracker(inputs["tracker"], mesh=edge),
-                   "train": run_train(inputs["train"], mesh=make_mesh(world, 1))}
+                   "train": run_train(inputs["train"], mesh=make_mesh(world, 1)),
+                   "train_edge": run_train(inputs["train_edge"], mesh=edge)}
         torch.save({k: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)
                     for k, v in out.items()}, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
