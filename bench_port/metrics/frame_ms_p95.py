@@ -1,0 +1,9 @@
+"""The 95th percentile of every frame's latency in the window (host
+clock, from the call to the end of its stream's sync)."""
+
+from bench_port.stats import percentile
+
+
+def read(ctx):
+    lat = ctx["latencies_ms"]
+    return percentile(lat, 95) if lat else None

@@ -1,0 +1,1 @@
+"""Subpackage of the frozen plain reference."""
