@@ -55,6 +55,8 @@ PAIR_CHUNK = 1 << 20  # kpairs whose [chunk, 36] products exist at once
 _DEVICE_INDEX = ("re", "r2f", "fk", "fa", "p1", "p2", "kd_order", "blk_seg", "blk_order",
                  "v_seg", "v_order", "r2f_order", "pair_seg", "pair_order", "fa_order",
                  "fk_order")
+_DEVICE_MASKS = ("rs", "fkeep")
+UPLOADED = _DEVICE_INDEX + _DEVICE_MASKS  # the arrays index_tensors copies to the device
 
 
 def _stable_order(ids: np.ndarray) -> np.ndarray:
@@ -171,7 +173,7 @@ def index_tensors(idx: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]
     """build_sparse_indices' arrays as tensors on ``device`` (the kernel's
     ids and orders int32, the masks bool)."""
     out = {k: torch.as_tensor(idx[k], dtype=torch.int32, device=device) for k in _DEVICE_INDEX}
-    for k in ("rs", "fkeep"):
+    for k in _DEVICE_MASKS:
         out[k] = torch.as_tensor(idx[k], device=device)
     return out
 

@@ -10,8 +10,10 @@ CPU tests import every module of the package on machines without
 
 ``LAUNCHES`` counts each kernel's launches; a wrapper adds one
 (``count``) where it launches its kernel and nowhere else, so a run can
-show that its main path went through the kernels. Classic loop closure's
-PGO launches from its own thread, so the count is taken under a lock.
+show that its main path went through the kernels. The counts are the
+recorder's ``launch.<kernel>`` counters (``utils/trace.py``), which take
+each count under a lock: classic loop closure's PGO launches from its own
+thread.
 """
 
 from __future__ import annotations
@@ -23,17 +25,49 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections.abc import MutableMapping
 from pathlib import Path
 
 import torch
+
+from dpvo_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"corr": 0, "segsum": 0, "segsum_bf16": 0, "spd_solve": 0, "corr_window": 0,
-            "corr_sw_fused": 0, "corr_v3_fused": 0, "corr_bwd": 0}
+KERNELS = ("corr", "segsum", "segsum_bf16", "spd_solve", "corr_window", "corr_sw_fused",
+           "corr_v3_fused", "corr_bwd")
+
+
+class _Launches(MutableMapping):
+    """Each kernel's launches: the recorder's counters, read and set."""
+
+    def __getitem__(self, name):
+        if name not in KERNELS:
+            raise KeyError(name)
+        return trace.COUNTS.get("launch." + name, 0)
+
+    def __setitem__(self, name, n):
+        if name not in KERNELS:
+            raise KeyError(name)
+        trace.put("launch." + name, n)
+
+    def __delitem__(self, name):
+        raise TypeError("a kernel's launch count cannot be deleted")
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self):
+        return len(KERNELS)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+LAUNCHES = _Launches()
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,19 +97,16 @@ _lock = threading.Lock()
 _lib = None
 
 
-_count_lock = threading.Lock()
-
-
 def count(name: str):
     """One launch of kernel `name` (thread-safe)."""
-    with _count_lock:
-        LAUNCHES[name] += 1
+    if name not in KERNELS:
+        raise KeyError(name)
+    trace.count("launch." + name)
 
 
 def reset_launches():
-    with _count_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+    for k in KERNELS:
+        LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:

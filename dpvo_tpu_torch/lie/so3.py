@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from dpvo_tpu_torch.utils import trace
+
 _EPS = 1e-8
 
 
@@ -28,8 +30,11 @@ def quat_mul(q1, q2):
 
 
 def quat_inv(q):
-    """Conjugate (assumes unit quaternion)."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    """Conjugate (assumes unit quaternion). The sign vector is a blocking
+    copy from host memory where q is on a card."""
+    with trace.blocked("upload", "quat_inv", q.device):
+        sign = q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return q * sign
 
 
 def cross(a, b):

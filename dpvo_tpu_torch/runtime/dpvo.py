@@ -56,6 +56,7 @@ non-steady branch, as in the JAX tracker.
 
 from __future__ import annotations
 
+import itertools
 import os
 from collections import deque
 from typing import Callable, Dict, Optional, Tuple
@@ -69,12 +70,13 @@ from dpvo_tpu_torch.config import Config
 from dpvo_tpu_torch.lie import se3
 from dpvo_tpu_torch.models.patchifier import draw_count, random_candidates
 from dpvo_tpu_torch.runtime.state import make_state
-from dpvo_tpu_torch.runtime.steps import StepFunctions, edge_tensors
+from dpvo_tpu_torch.runtime.steps import EDGE_UPLOADS, StepFunctions, edge_tensors
 from dpvo_tpu_torch.runtime.topology import Topology, dense_rank
 from dpvo_tpu_torch.runtime.weights import load_networks
 from dpvo_tpu_torch.slam.long_term import LongTermLoopClosure
 from dpvo_tpu_torch.slam.proximity import edges_loop
 from dpvo_tpu_torch.slam.retrieval import Detect
+from dpvo_tpu_torch.utils import trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,6 +90,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 Draws = Callable[[int], Tuple[object, object]]
+_TRACKERS = itertools.count()  # each tracker's identity in its spans' request
 
 
 class DPVO:
@@ -115,6 +118,12 @@ class DPVO:
     own tracker on the same frames with the same draws and ends with the
     same trajectory; ``device`` is the rank's own card (or the CPU under a
     gloo group).
+
+    With the recorder on (``utils/trace.py``), each call is a ``frame``
+    span, request (tracker, frame counter), and ``terminate`` one of
+    request (tracker, "terminate"), with the steps inside them as spans;
+    every blocking fetch and upload is a ``wait.*`` / ``upload.*`` span and
+    counts ``sync.*``, on or off.
     """
 
     def __init__(self, cfg: Config, network=None, ht: int = 480, wd: int = 640, device=None,
@@ -141,6 +150,7 @@ class DPVO:
         self.topo = Topology(cfg)
         self._gen = torch.Generator().manual_seed(seed)
         self.draws = draws if draws is not None else self._random_draws
+        self.trace_id = next(_TRACKERS)
 
         self.is_initialized = False
         self.counter = 0     # total frames seen
@@ -176,7 +186,8 @@ class DPVO:
         """The live keyframes' poses [n, 7], the pending keyframe decisions
         applied first."""
         self._drain()
-        return self.state.poses[: self.n].cpu().numpy()
+        with trace.blocked("wait", "poses", self.device):
+            return self.state.poses[: self.n].cpu().numpy()
 
     @torch.no_grad()
     def point_cloud(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -184,9 +195,9 @@ class DPVO:
         live patches (PLY / COLMAP export, the viewer), the pending keyframe
         decisions applied first."""
         self._drain()
-        pts = self.steps._point_cloud(self.state, self.m).cpu().numpy()
-        clr = self.state.colors.reshape(-1, 3)[: self.m].cpu().numpy()
-        return pts, clr
+        pts = self.steps._point_cloud(self.state, self.m)
+        with trace.blocked("wait", "point_cloud", self.device, 2):
+            return pts.cpu().numpy(), self.state.colors.reshape(-1, 3)[: self.m].cpu().numpy()
 
     def _random_draws(self, frame: int):
         M = self.cfg.PATCHES_PER_FRAME
@@ -196,13 +207,21 @@ class DPVO:
 
     def _edges(self, **kw):
         es = self.topo.edge_set(pad=len(kw["ii"]) if "ii" in kw else len(self.topo.ii), **kw)
-        return edge_tensors(es, self.device)
+        return self._upload_edges(es)
+
+    def _upload_edges(self, es):
+        with trace.blocked("upload", "edge_set", self.device, EDGE_UPLOADS):
+            return edge_tensors(es, self.device)
 
     # ---------------- per-frame tracking ----------------
 
     @torch.no_grad()
     def __call__(self, tstamp, image: np.ndarray, intrinsics: np.ndarray):
         """Track one frame. image [H,W,3] uint8 RGB; intrinsics [4]."""
+        with trace.span("frame", request=(self.trace_id, self.counter)):
+            self._frame(tstamp, image, intrinsics)
+
+    def _frame(self, tstamp, image: np.ndarray, intrinsics: np.ndarray):
         cfg = self.cfg
         if (self.n + 1) >= cfg.BUFFER_SIZE - (cfg.KEYFRAME_INDEX + 5):
             raise RuntimeError(f"Buffer size {cfg.BUFFER_SIZE} too small; increase BUFFER_SIZE")
@@ -236,12 +255,15 @@ class DPVO:
         points, depth_init = self.draws(self.counter)
         self.counter += 1
 
-        image_t = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
-        points = torch.as_tensor(points, dtype=torch.float32).to(self.device)
-        depth_init = torch.as_tensor(depth_init, dtype=torch.float32)
-        fmap, gmap, imap, patches, clr = self.steps._patchify(image_t, points)
-        self.steps._ingest(self.state, self.n, fmap, gmap, imap, patches, clr, intrinsics, fac,
-                           self.is_initialized, self.n > 1, depth_init)
+        with trace.span("patchify"):
+            with trace.blocked("upload", "image", self.device, 2):
+                image_t = torch.as_tensor(np.ascontiguousarray(image)).to(self.device)
+                points = torch.as_tensor(points, dtype=torch.float32).to(self.device)
+            depth_init = torch.as_tensor(depth_init, dtype=torch.float32)
+            fmap, gmap, imap, patches, clr = self.steps._patchify(image_t, points)
+        with trace.span("ingest"):
+            self.steps._ingest(self.state, self.n, fmap, gmap, imap, patches, clr, intrinsics,
+                               fac, self.is_initialized, self.n > 1, depth_init)
 
         if self.n > 0 and not self.is_initialized:
             if self._motion_probe() < 2.0:
@@ -249,19 +271,23 @@ class DPVO:
                 self.delta[self.counter - 1] = (self.counter - 2, se3.identity().numpy())
                 return
 
-        self.topo.add_frame()
+        with trace.span("topology"):
+            self.topo.add_frame()
         if cfg.LOOP_CLOSURE and self.n - self.last_global_ba >= cfg.GLOBAL_OPT_FREQ:
-            lkk, ljj = edges_loop(self)
+            with trace.span("loop.proposal"):
+                lkk, ljj = edges_loop(self)
             if len(lkk) > 0:
                 self.last_global_ba = self.n
-                self._append(lkk, ljj)
+                with trace.span("topology"):
+                    self._append(lkk, ljj)
 
-        kk_f, jj_f = self.topo.edges_forw()
-        kk_b, jj_b = self.topo.edges_back()
-        kk_new, jj_new = np.concatenate([kk_f, kk_b]), np.concatenate([jj_f, jj_b])
-        if steady:
-            self._cap_depths(kk_new)
-        self._append(kk_new, jj_new)
+        with trace.span("topology"):
+            kk_f, jj_f = self.topo.edges_forw()
+            kk_b, jj_b = self.topo.edges_back()
+            kk_new, jj_new = np.concatenate([kk_f, kk_b]), np.concatenate([jj_f, jj_b])
+            if steady:
+                self._cap_depths(kk_new)
+            self._append(kk_new, jj_new)
 
         if self.n == 8 and not self.is_initialized:
             self.is_initialized = True
@@ -309,9 +335,12 @@ class DPVO:
         """Median predicted flow of the last frame's patches against the
         new frame."""
         M = self.cfg.PATCHES_PER_FRAME
-        kk = np.arange(self.m - M, self.m)
-        jj = np.full(M, self.n)
-        return float(self.steps._probe(self.state, self._edges(ii=kk // M, jj=jj, kk=kk)))
+        with trace.span("motion_probe"):
+            kk = np.arange(self.m - M, self.m)
+            jj = np.full(M, self.n)
+            mag = self.steps._probe(self.state, self._edges(ii=kk // M, jj=jj, kk=kk))
+            with trace.blocked("wait", "motion_probe", self.device):
+                return float(mag)
 
     # ---------------- optimization round ----------------
 
@@ -333,13 +362,16 @@ class DPVO:
         run_gba = (cfg.LOOP_CLOSURE
                    and (self.topo.ii < self.n - cfg.REMOVAL_WINDOW - 1).any()
                    and self.n not in self.ran_global_ba)
-        es = self.topo.edge_set(pad=len(self.topo.ii))
-        edges = edge_tensors(es, self.device)
+        with trace.span("topology"):
+            es = self.topo.edge_set(pad=len(self.topo.ii))
+            edges = self._upload_edges(es)
         if self.oracle is not None:
             target, weight = self.oracle(self, es)
             t = lambda x: torch.as_tensor(np.asarray(x, np.float32)[: es.count],
                                           device=self.device)
-            self.steps._ba_only(self.state, edges, t(target), t(weight), t0, nfree)
+            with trace.blocked("upload", "oracle", self.device, 2):
+                target, weight = t(target), t(weight)
+            self.steps._ba_only(self.state, edges, target, weight, t0, nfree)
             if run_gba:  # the global BA reads the oracle's stored targets
                 self._run_global_ba()
         elif run_gba:
@@ -353,9 +385,16 @@ class DPVO:
         dpvo.py:695-716), after the scale-gauge guard. Frees every pose from
         the oldest edge's frame, at most GBA_POSES_MAX of them (older poses
         anchor the gauge)."""
+        with trace.span("gba.round") as rnd:
+            self._global_ba_round(rnd)
+        self.ran_global_ba.add(self.n)
+
+    def _global_ba_round(self, rnd):
         cfg = self.cfg
-        ges, pos, ninac = self.topo.global_edge_set()
-        s_norm = float(self.steps._normalize(self.state, self.n, self.m))
+        with trace.span("gba.normalize"):
+            s = self.steps._normalize(self.state, self.n, self.m)
+            with trace.blocked("wait", "gauge", self.device):
+                s_norm = float(s)
         # sustained saturation of the [0.25, 4] clamp: a heavy-tailed depth
         # distribution, whose scale may drift
         if s_norm <= 0.2501 or s_norm >= 3.999:
@@ -364,15 +403,18 @@ class DPVO:
                 print(f"warning: normalize gauge rescale clamped (s={s_norm:.3g}, "
                       f"hit #{self._norm_clamp_hits}) — depth distribution has a "
                       "heavy tail; trajectory scale may drift")
-        E = ges["count"]
-        t0 = int(min(ges["ii"].min(), self.n - 1)) if E else 0
-        t0 = max(t0, max(self.n - cfg.GBA_POSES_MAX, 0))
-        nfree = self.n - t0
-        idx = build_sparse_indices(ges["ii"], ges["jj"], ges["kd"], t0, nfree,
-                                   W=max(nfree, 1), R_MAX=2 * cfg.GBA_EDGES_MAX,
-                                   KP_MAX=cfg.GBA_KPAIRS_MAX)
-        self.steps._global_ba(self.state, ges, pos, ninac, t0, nfree, idx)
-        self.ran_global_ba.add(self.n)
+        with trace.span("gba.sparsity"):
+            ges, pos, ninac = self.topo.global_edge_set()
+            E = ges["count"]
+            t0 = int(min(ges["ii"].min(), self.n - 1)) if E else 0
+            t0 = max(t0, max(self.n - cfg.GBA_POSES_MAX, 0))
+            nfree = self.n - t0
+            idx = build_sparse_indices(ges["ii"], ges["jj"], ges["kd"], t0, nfree,
+                                       W=max(nfree, 1), R_MAX=2 * cfg.GBA_EDGES_MAX,
+                                       KP_MAX=cfg.GBA_KPAIRS_MAX)
+        rnd.set(E=E, kpairs=len(idx["p1"]), nfree=nfree, ninac=ninac)
+        with trace.span("gba.solve"):
+            self.steps._global_ba(self.state, ges, pos, ninac, t0, nfree, idx)
 
     # ---------------- keyframing ----------------
 
@@ -382,22 +424,26 @@ class DPVO:
         queued with n and the pose pair of a cull of frame n-KI; the
         cull / retirement decision is applied when the queue drains it."""
         cfg = self.cfg
-        i = self.n - cfg.KEYFRAME_INDEX - 1
-        j = self.n - cfg.KEYFRAME_INDEX + 1
-        mags = []
-        t = lambda x: torch.as_tensor(x, device=self.device)
-        for a, b in ((i, j), (j, i)):
-            sel = (self.topo.ii == a) & (self.topo.jj == b)
-            kk = self.topo.kk[sel][: cfg.PATCHES_PER_FRAME]
-            if len(kk) == 0:
-                mags.append(torch.zeros((), device=self.device))
-                continue
-            mags.append(self.steps._flowmag_pair(self.state, t(np.full(len(kk), a)),
-                                                 t(np.full(len(kk), b)), t(kk), 0.5))
-        # one fetch, as the JAX step's out_small: the magnitude and the pair
-        small = torch.cat([((mags[0] + mags[1]) / 2).reshape(1),
-                           self.state.poses[i:i + 2].reshape(-1)]).cpu()
-        self._inflights.append((float(small[0]), self.n, small[1:].reshape(2, 7)))
+        with trace.span("keyframe"):
+            i = self.n - cfg.KEYFRAME_INDEX - 1
+            j = self.n - cfg.KEYFRAME_INDEX + 1
+            mags = []
+            t = lambda x: torch.as_tensor(x, device=self.device)
+            for a, b in ((i, j), (j, i)):
+                sel = (self.topo.ii == a) & (self.topo.jj == b)
+                kk = self.topo.kk[sel][: cfg.PATCHES_PER_FRAME]
+                if len(kk) == 0:
+                    mags.append(torch.zeros((), device=self.device))
+                    continue
+                with trace.blocked("upload", "keyframe", self.device, 3):
+                    edges = t(np.full(len(kk), a)), t(np.full(len(kk), b)), t(kk)
+                mags.append(self.steps._flowmag_pair(self.state, *edges, 0.5))
+            # one fetch, as the JAX step's out_small: the magnitude and the pair
+            small = torch.cat([((mags[0] + mags[1]) / 2).reshape(1),
+                               self.state.poses[i:i + 2].reshape(-1)])
+            with trace.blocked("wait", "keyframe", self.device):
+                small = small.cpu()
+            self._inflights.append((float(small[0]), self.n, small[1:].reshape(2, 7)))
         if cfg.KEYFRAME_SYNC:
             self._drain()
 
@@ -407,7 +453,8 @@ class DPVO:
         it holds only if no frame was added or culled since (always at depth
         1 or with KEYFRAME_SYNC); otherwise the rows are read now."""
         m, n_disp, pair = self._inflights.popleft()
-        self._keyframe_decide(m, pose_pair=pair if n_disp == self.n else None)
+        with trace.span("keyframe.decide"):
+            self._keyframe_decide(m, pose_pair=pair if n_disp == self.n else None)
 
     def _drain(self):
         while self._inflights:
@@ -421,7 +468,10 @@ class DPVO:
         M = cfg.PATCHES_PER_FRAME
         if m < cfg.KEYFRAME_THRESH:
             k = self.n - cfg.KEYFRAME_INDEX
-            pair = pose_pair if pose_pair is not None else self.state.poses[k - 1:k + 1].cpu()
+            pair = pose_pair
+            if pair is None:
+                with trace.blocked("wait", "cull_pair", self.device):
+                    pair = self.state.poses[k - 1:k + 1].cpu()
             dP = se3.mul(pair[1], se3.inv(pair[0])).numpy()
             self.delta[self.tstamps[k]] = (self.tstamps[k - 1], dP)
             # drop edges touching frame k (not stored), renumber, shift buffers
@@ -447,8 +497,12 @@ class DPVO:
         _, src, dst = self.topo.remove(mask, store=store)
         t = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=self.device)
         if len(src) > 0:
-            self.steps._store_inactive(self.state, t(src), t(dst))
-        self.steps._compact_edges(self.state, t(keep))
+            with trace.blocked("upload", "remove", self.device, 2):
+                src, dst = t(src), t(dst)
+            self.steps._store_inactive(self.state, src, dst)
+        with trace.blocked("upload", "remove", self.device, int(len(keep) > 0)):
+            keep = t(keep)
+        self.steps._compact_edges(self.state, keep)
 
     # ---------------- termination ----------------
 
@@ -484,8 +538,9 @@ class DPVO:
         self._rescale_deltas(corrected[:, 7])
         q = corrected[:, 3:7] / np.linalg.norm(corrected[:, 3:7], axis=-1, keepdims=True)
         t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        self.steps._apply_pgo(self.state, t(np.concatenate([corrected[:, :3], q], 1)),
-                              t(corrected[:, 7]), m)
+        with trace.blocked("upload", "pgo", self.device, 2):
+            poses, scales = t(np.concatenate([corrected[:, :3], q], 1)), t(corrected[:, 7])
+        self.steps._apply_pgo(self.state, poses, scales, m)
 
     @torch.no_grad()
     def terminate(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -495,17 +550,24 @@ class DPVO:
         global BA while loop edges are active; returns camera-to-world poses
         [T,7] for every frame (culled ones through their relative-pose chain)
         and the timestamps."""
+        with trace.span("terminate", request=(self.trace_id, "terminate")):
+            return self._terminate()
+
+    def _terminate(self):
         self._drain()
         if self.long_term_lc is not None:
             self.long_term_lc.terminate(self.n)
         if self.cfg.LOOP_CLOSURE:
-            lkk, ljj = edges_loop(self)
+            with trace.span("loop.proposal"):
+                lkk, ljj = edges_loop(self)
             if len(lkk) > 0:
-                self._append(lkk, ljj)
+                with trace.span("topology"):
+                    self._append(lkk, ljj)
         for _ in range(12):
             self.ran_global_ba.discard(self.n)
             self.update()
-        poses_kf = self.state.poses[: self.n].cpu().numpy()
+        with trace.blocked("wait", "terminate", self.device):
+            poses_kf = self.state.poses[: self.n].cpu().numpy()
         traj = {self.tstamps[i]: poses_kf[i] for i in range(self.n)}
         poses = np.stack([self.get_pose(t, traj) for t in range(self.counter)])
         poses = se3.inv(torch.as_tensor(poses)).numpy()

@@ -31,6 +31,7 @@ from dpvo_tpu_torch.ops.corr_pallas import (corr_features_pallas, corr_features_
                                             corr_features_pallas_sw)
 from dpvo_tpu_torch.runtime.state import VOState
 from dpvo_tpu_torch.runtime.topology import EdgeSet
+from dpvo_tpu_torch.utils import trace
 
 PAIR_MAX = 1024  # distinct (ii, jj) pairs in the active window (SoftAgg size / 2)
 
@@ -39,6 +40,8 @@ _TWO_OVER_255 = float(np.float32(2.0 / 255.0))
 _EDGE_INDEX = ("ii", "jj", "kk", "ix", "jx", "dense2patch")
 # read by the CUDA kernels as int32
 _KERNEL_INDEX = ("ii1", "jj1", "kk_seg", "ij_seg", "kd", "kd_order", "ij_order")
+_EDGE_MASKS = ("valid", "mask_ix", "mask_jx")
+EDGE_UPLOADS = len(_EDGE_INDEX) + len(_KERNEL_INDEX) + len(_EDGE_MASKS)  # copies of edge_tensors
 
 # CORR_IMPL -> the JAX tracker's correlation function of that name
 # (dpvo_tpu/runtime/steps.py:57-65, :523-528); "auto" is "xla" off the TPU
@@ -54,11 +57,17 @@ def edge_tensors(es: EdgeSet, device) -> Dict[str, torch.Tensor]:
            for k in _EDGE_INDEX}
     for k in _KERNEL_INDEX:
         out[k] = torch.as_tensor(np.asarray(getattr(es, k), np.int32), device=device)
-    for k in ("valid", "mask_ix", "mask_jx"):
+    for k in _EDGE_MASKS:
         out[k] = torch.as_tensor(getattr(es, k), device=device)
     out["n_depths"] = es.n_depths
     out["count"] = es.count
     return out
+
+
+def _uploads(*arrays) -> int:
+    """The blocking copies that uploading arrays makes: an empty one copies
+    nothing."""
+    return sum(np.size(a) > 0 for a in arrays)
 
 
 def median(x):
@@ -146,8 +155,9 @@ class StepFunctions:
         ``astype`` does."""
         cfg = self.cfg
         M = cfg.PATCHES_PER_FRAME
-        state.intrinsics[n] = torch.as_tensor(intrinsics, dtype=torch.float32,
-                                              device=self.device) / cfg.RES
+        with trace.blocked("upload", "intrinsics", self.device):
+            intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32, device=self.device)
+        state.intrinsics[n] = intrinsics / cfg.RES
         state.colors[n] = clr.to(torch.uint8)
 
         P1 = state.poses[max(n - 1, 0)]
@@ -162,7 +172,8 @@ class StepFunctions:
             lo = max(n - 3, 0) * M
             depth = median(state.dvec[lo:lo + 3 * M]).expand(M)
         else:
-            depth = depth_init.to(device=self.device, dtype=torch.float32)
+            with trace.blocked("upload", "depth_init", self.device):
+                depth = depth_init.to(device=self.device, dtype=torch.float32)
         patches = patches.clone()
         patches[:, 2] = depth[:, None, None]
         state.patches[n * M:(n + 1) * M] = patches
@@ -189,27 +200,30 @@ class StepFunctions:
 
     def _edge_forward(self, state: VOState, es: Dict[str, torch.Tensor], net=None):
         """reproject -> correlate -> update operator."""
-        cfg = self.cfg
-        E = es["ii"].shape[0]
-        if net is None:
-            net = state.net[:E]
-        coords = pops.transform(state.poses, state.patches, state.intrinsics, es["ii"],
-                                es["jj"], es["kk"], depth=state.dvec)
-        corr = self._corr(state, coords.to(torch.float32).contiguous(), es)
-        corr = corr.reshape(E, -1).to(self.fdt)
-        ctx = state.imap[es["ii1"]]
-        args = (net, ctx, corr, es["ix"], es["jx"], es["mask_ix"], es["mask_jx"], es["kk_seg"],
-                es["ij_seg"], es["valid"])
-        if self.exported is not None:
-            net, delta, weight = self.exported.update(
-                *args, es["kd_order"], es["ij_order"], num_segments=es["dense2patch"].shape[0])
-        else:
-            net, delta, weight = self.nets.update(
-                *args, num_segments=es["dense2patch"].shape[0], num_ij_segments=2 * PAIR_MAX,
-                kk_order=es["kd_order"], ij_order=es["ij_order"])
-        c = cfg.P // 2
-        target = coords[:, c, c, :].to(torch.float32) + delta
-        return net, target, weight, delta
+        with trace.span("edge_forward", E=es["count"], n_depths=es["n_depths"]):
+            cfg = self.cfg
+            E = es["ii"].shape[0]
+            if net is None:
+                net = state.net[:E]
+            coords = pops.transform(state.poses, state.patches, state.intrinsics, es["ii"],
+                                    es["jj"], es["kk"], depth=state.dvec)
+            corr = self._corr(state, coords.to(torch.float32).contiguous(), es)
+            corr = corr.reshape(E, -1).to(self.fdt)
+            ctx = state.imap[es["ii1"]]
+            args = (net, ctx, corr, es["ix"], es["jx"], es["mask_ix"], es["mask_jx"],
+                    es["kk_seg"], es["ij_seg"], es["valid"])
+            if self.exported is not None:
+                net, delta, weight = self.exported.update(
+                    *args, es["kd_order"], es["ij_order"],
+                    num_segments=es["dense2patch"].shape[0])
+            else:
+                net, delta, weight = self.nets.update(
+                    *args, num_segments=es["dense2patch"].shape[0],
+                    num_ij_segments=2 * PAIR_MAX, kk_order=es["kd_order"],
+                    ij_order=es["ij_order"])
+            c = cfg.P // 2
+            target = coords[:, c, c, :].to(torch.float32) + delta
+            return net, target, weight, delta
 
     def _corr(self, state: VOState, coords, es: Dict[str, torch.Tensor]):
         """Correlation features by CORR_IMPL (JAX step :523-538). The
@@ -259,21 +273,22 @@ class StepFunctions:
 
     def _window_ba(self, state: VOState, es: Dict[str, torch.Tensor], target, weight, t0: int,
                    nfree: int):
-        cfg = self.cfg
-        c = cfg.P // 2
-        nd = es["n_depths"]
-        Md = es["dense2patch"].shape[0]
-        d2p = es["dense2patch"][:nd]
-        ctr = torch.zeros((Md, 3), dtype=torch.float32, device=self.device)
-        ctr[:nd, :2] = state.patches[d2p, :2, c, c]
-        ctr[:nd, 2] = state.dvec[d2p]
-        poses, depths = ba_solver.ba(
-            state.poses, ctr, state.intrinsics, target, weight, es["valid"], es["ii"], es["jj"],
-            es["kd"], t0, nfree, self._ba_bounds(state), cfg.BA_LMBDA, W=cfg.W_OPT_MAX,
-            Md=Md, iterations=cfg.BA_ITERS, ep=cfg.BA_EP, lm=cfg.BA_LM,
-            res_clip=cfg.BA_RESIDUAL_CLIP, clamp_mode="runtime", kd_order=es["kd_order"])
-        state.poses.copy_(poses)
-        state.dvec[d2p] = depths[:nd]
+        with trace.span("window_ba"):
+            cfg = self.cfg
+            c = cfg.P // 2
+            nd = es["n_depths"]
+            Md = es["dense2patch"].shape[0]
+            d2p = es["dense2patch"][:nd]
+            ctr = torch.zeros((Md, 3), dtype=torch.float32, device=self.device)
+            ctr[:nd, :2] = state.patches[d2p, :2, c, c]
+            ctr[:nd, 2] = state.dvec[d2p]
+            poses, depths = ba_solver.ba(
+                state.poses, ctr, state.intrinsics, target, weight, es["valid"], es["ii"],
+                es["jj"], es["kd"], t0, nfree, self._ba_bounds(state), cfg.BA_LMBDA,
+                W=cfg.W_OPT_MAX, Md=Md, iterations=cfg.BA_ITERS, ep=cfg.BA_EP, lm=cfg.BA_LM,
+                res_clip=cfg.BA_RESIDUAL_CLIP, clamp_mode="runtime", kd_order=es["kd_order"])
+            state.poses.copy_(poses)
+            state.dvec[d2p] = depths[:nd]
 
     def _probe(self, state: VOState, es: Dict[str, torch.Tensor]):
         """Motion probe: median |delta| over the probe edges with zero
@@ -319,8 +334,9 @@ class StepFunctions:
                                   (state.fmap1, self.cfg.MEM, 1), (state.fmap2, self.cfg.MEM, 1)):
             dst = ((f % period)[:, None] * rows + np.arange(rows)[None, :]).reshape(-1)
             src = (((f + 1) % period)[:, None] * rows + np.arange(rows)[None, :]).reshape(-1)
-            buf[torch.as_tensor(dst, device=self.device)] = \
-                buf[torch.as_tensor(src, device=self.device)]
+            with trace.blocked("upload", "keyframe_shift", self.device, 2):
+                dst, src = (torch.as_tensor(x, device=self.device) for x in (dst, src))
+            buf[dst] = buf[src]
 
     def _apply_pgo(self, state: VOState, poses_new, scales, m: int):
         """Apply a Sim(3) PGO result: poses < m from poses_new [>= m, 7],
@@ -370,13 +386,18 @@ class StepFunctions:
         pos [ninac] the ring slots of the first ninac; idx: their sparsity
         (``build_sparse_indices`` with W = max(nfree, 1)). With a mesh,
         through ``dist_gba``."""
-        args, kw = self._gba_inputs(state, ges, pos, ninac, t0, nfree, idx)
+        arrays = [pos, ges["dense2patch"], ges["ii"], ges["jj"], ges["kd"]]
+        arrays += [idx[k] for k in gba_sparse.UPLOADED]
+        with trace.blocked("upload", "gba", self.device, _uploads(*arrays)):
+            args, kw = self._gba_inputs(state, ges, pos, ninac, t0, nfree, idx)
         if self.mesh is None:
             poses, depths = gba_sparse.gba(*args, **kw)
         else:
             poses, depths = gba_sparse.dist_gba(self.mesh, *args, **kw)
         state.poses.copy_(poses)
-        state.dvec[torch.as_tensor(ges["dense2patch"], device=self.device)] = depths
+        with trace.blocked("upload", "gba_depths", self.device):
+            d2p = torch.as_tensor(ges["dense2patch"], device=self.device)
+        state.dvec[d2p] = depths
 
     def _gba_inputs(self, state: VOState, ges, pos, ninac: int, t0: int, nfree: int, idx):
         """The arguments of ``gba_sparse.gba`` for a global-BA round: the

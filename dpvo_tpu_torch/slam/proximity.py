@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from dpvo_tpu_torch.geom import projective as pops
+from dpvo_tpu_torch.utils import trace
 
 LC_CAND_MAX = 1 << 20  # candidate edges scored per proposal
 MIN_SEPARATION = 30    # frames between the two frames of a pair (ref optim_utils.py:37)
@@ -76,13 +77,16 @@ def edges_loop(slam):
     # candidates [frames, patches], row-major, built on the device
     dev = slam.device
     kk = torch.arange(lo * M, l * M, device=dev).repeat(len(jj_r))
-    jj = torch.as_tensor(jj_r, device=dev).repeat_interleave(len(kk_r))
+    with trace.blocked("upload", "loop_frames", dev):
+        jj = torch.as_tensor(jj_r, device=dev)
+    jj = jj.repeat_interleave(len(kk_r))
     st = slam.state
     c = cfg.P // 2
     ctr = torch.cat([st.patches[:, :2, c:c + 1, c:c + 1], st.dvec[:, None, None, None]], 1)
     mag, val = _lc_flow(st.poses, ctr, st.intrinsics, kk // M, jj, kk)
-    mag = mag.cpu().numpy().reshape(len(jj_r), -1)  # [frames, patches]
-    val = val.cpu().numpy().reshape(len(jj_r), -1)
+    with trace.blocked("wait", "loop_flow", dev, 2):
+        mag = mag.cpu().numpy().reshape(len(jj_r), -1)  # [frames, patches]
+        val = val.cpu().numpy().reshape(len(jj_r), -1)
 
     # per frame pair, in M-patch blocks
     fl = mag.shape[1] // M

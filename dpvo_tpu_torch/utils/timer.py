@@ -6,6 +6,10 @@ region; here ``sync`` is a CUDA tensor or device, whose queued work the
 timer waits for (``torch.cuda.synchronize``) before it reads the clock.
 Anything else (None, a CPU tensor) needs no wait: CPU work is done when
 the region ends.
+
+A timer is a front for the port's recorder (``utils/trace.py``): while it
+is on (``trace.enable()``), the region is also a span of the timer's name,
+with the wait a ``wait.timer`` span inside it.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import time
 from contextlib import ContextDecorator
 
 import torch
+
+from dpvo_tpu_torch.utils import trace
 
 all_times = {}
 
@@ -38,6 +44,8 @@ class Timer(ContextDecorator):
         self.sync = sync  # a tensor or device whose CUDA work the region waits for
 
     def __enter__(self):
+        self._span = trace.span(self.name)
+        self._span.__enter__()
         if self.enabled:
             self.start = time.perf_counter()
         return self
@@ -46,8 +54,10 @@ class Timer(ContextDecorator):
         if self.enabled:
             dev = _cuda_device(self.sync)
             if dev is not None:
-                torch.cuda.synchronize(dev)
+                with trace.blocked("wait", "timer", dev):
+                    torch.cuda.synchronize(dev)
             elapsed = (time.perf_counter() - self.start) * 1000.0
             all_times.setdefault(self.name, []).append(elapsed)
             print(f"{self.name} {elapsed:.03f}")
+        self._span.__exit__(*exc)
         return False

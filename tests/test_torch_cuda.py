@@ -884,3 +884,95 @@ def test_mesh_of_one_nccl_rank_is_single_device(dev, tmp_path):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+def test_span_attributes_a_device_gap_on_the_profilers_clock(dev):
+    """A 20 ms host wait inside a span between two kernels, each kernel
+    launched and waited for inside a span of its own, profiled with CUDA
+    activity alone: the device's idle gap between the kernels is laid on
+    the spans (bench_port/program_trace.py, the profile's start from
+    trace_start_ns). The wait's span takes the gap's 20 ms within 1 ms,
+    all of its own length (no clock offset moves part of it out of the
+    gap), and the gap's ends fall in the kernels' spans. The wait spins on
+    the host clock: time.sleep(0.02) overshot by ~1.1 ms on the card's
+    host."""
+    import time
+
+    from bench_port import profile_window, program_trace
+    from bench_port.trace_run import trace_start_ns
+    from dpvo_tpu_torch.utils import trace
+
+    def wait_20ms():
+        end = time.perf_counter() + 0.02
+        while time.perf_counter() < end:
+            pass
+
+    x = torch.randn(2048, 2048, device=dev)
+    (x @ x).sum().item()
+    profile_window.start().stop()  # the profiler's first start, as the benchmark's set-up
+    prof = profile_window.start()
+    trace.enable()
+    try:
+        with trace.span("kernel_a"):
+            y = x @ x
+            torch.cuda.synchronize()
+        with trace.span("wait"):
+            wait_20ms()
+        with trace.span("kernel_b"):
+            y = y @ x
+            torch.cuda.synchronize()
+    finally:
+        spans, _ = trace.drain()
+        trace.disable()
+    prof.stop()
+    seg = profile_window.summarize(prof)
+    seg["trace_start_ns"] = trace_start_ns(prof)
+    (sp,) = [s for s in spans if s.name == "wait"]
+    length = (sp.t1_ns - sp.t0_ns) * 1e-9
+    idle = program_trace.attribute_idle(spans, [seg])
+    a, b = max(program_trace.idle_intervals(seg), key=lambda g: g[1] - g[0])
+    print(f"gap {(b - a) * 1e-6:.4f} ms from {(sp.t0_ns - a) * 1e-6:.4f} ms before the wait's "
+          f"span to {(b - sp.t1_ns) * 1e-6:.4f} ms after it; span {length * 1e3:.4f} ms; idle by "
+          f"span (ms) { {k: round(v * 1e3, 4) for k, v in idle.items()} }")
+    assert abs(idle["wait"] - 0.02) < 1e-3
+    assert abs(idle["wait"] - length) < 1e-3
+    assert idle.get(program_trace.OUTSIDE, 0.0) < 1e-3
+
+
+def test_steady_frame_sync_count_matches_sync_debug_mode(dev):
+    """The recorder's sync.* counts of one steady frame of the small
+    tracker equal the synchronizing operations that PyTorch's sync debug
+    mode warns of in it, with the recorder on and off."""
+    import warnings
+
+    import chip_smoke
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.runtime.dpvo import DPVO
+    from dpvo_tpu_torch.utils import trace
+    from dpvo_tpu_torch.utils.synthetic import PlaneScene
+
+    scene = PlaneScene(ht=96, wd=128, n_frames=16, depth=5.0, seed=9002, tstep=0.3, rstep=0.008)
+    slam = DPVO(Config(**chip_smoke.SMALL_CFG), "tests/fixtures/tiny_synth.npz", 96, 128,
+                device=dev, seed=0)
+    for t in range(12):
+        slam(t, scene.render(t), scene.intrinsics.copy())
+    assert slam.is_initialized
+    syncs = lambda: sum(v for k, v in trace.COUNTS.items() if k.startswith("sync."))
+    for t, on in ((12, False), (13, True)):
+        if on:
+            trace.enable()
+        torch.cuda.synchronize()
+        before = syncs()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                slam(t, scene.render(t), scene.intrinsics.copy())
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                trace.disable()
+        warned = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+        print(f"frame {t}, recorder {'on' if on else 'off'}: {warned} syncs warned, "
+              f"{syncs() - before} counted")
+        assert warned > 0 and syncs() - before == warned
+    trace.drain()
