@@ -2451,15 +2451,20 @@ def phase_gradient_bias_parallel(torch, kernels, smi, main_ate, stream):
             selected.append((image_u8.cpu(), draws.cpu(), out[3][:, :2, c, c].cpu()))
         return out
 
-    real_ba = ba_solver.ba
+    window_ba = slam.steps._window_ba
 
-    def keep_ba(*args, **kw):  # the last sliding-window BA's inputs, for item 4
+    def keep_ba(*step_args):
+        """The last sliding-window BA's inputs, for item 4, as the eager step
+        passes them to ``ba_solver.ba`` (on the card the step replays CUDA
+        graphs, which call no Python function of the solver's)."""
+        args, kw = slam.steps.window_ba_args(*step_args)
         last_ba.update(args=tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
-                       kw=dict(kw))
-        return real_ba(*args, **kw)
+                       kw={k: v.clone() if isinstance(v, torch.Tensor) else v
+                           for k, v in kw.items()})
+        return window_ba(*step_args)
 
     slam.steps._patchify = recorded
-    ba_solver.ba = keep_ba
+    slam.steps._window_ba = keep_ba
     timer_mod.all_times.clear()
     kernels.reset_launches()
     step_ms = []
@@ -2471,7 +2476,7 @@ def phase_gradient_bias_parallel(torch, kernels, smi, main_ate, stream):
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
     finally:
-        ba_solver.ba = real_ba
+        del slam.steps._window_ba
     poses, _ = slam.terminate()
     torch.cuda.synchronize()
     launches["gradient_bias"] = _launched(kernels)

@@ -12,7 +12,10 @@ damped S += I(lm*S + ep). The Gram products stay ``torch.matmul`` (the
 JAX package leaves them to XLA); the depth reduction is
 ``ba/segsum.segment_sum`` and the pose solve ``ba/spd_solve.spd_solve``,
 each a CUDA kernel on a card and its plain version on the CPU.
-``t0`` and ``nfree`` are host integers.
+``t0`` and ``nfree`` are host integers, or 0-d int64 tensors on the
+problem's device (the runtime's CUDA graph of the window BA,
+``runtime/ba_graph.py``, where a host value would be baked into the
+capture): then nothing reads them on the host.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ class BAProblem(NamedTuple):
     ii: torch.Tensor           # [E] source frame
     jj: torch.Tensor           # [E] target frame
     kd: torch.Tensor           # [E] dense depth-variable index in [0, Md)
-    t0: int                    # first free pose
+    t0: int                    # first free pose (or a 0-d tensor, as nfree)
     nfree: int                 # number of free poses (<= W)
     kd_order: Optional[torch.Tensor] = None  # [E] stable argsort of kd
 
@@ -102,11 +105,14 @@ def no_sum(*xs):
 
 
 def assemble_normal_eqs(prob: BAProblem, bounds, *, W: int, Md: int, res_clip: float = 128.0,
-                        allsum=no_sum):
+                        allsum=no_sum, segsum=segment_sum):
     """Returns (B6 [6W,6W], E6 [6W,Md], C [Md], u [Md], v6 [6W]).
 
     allsum (``no_sum``): sums the partial B6, v6 and depth sums over the
-    ranks that each assembled a part of the edges (``parallel/dist_ba.py``)."""
+    ranks that each assembled a part of the edges (``parallel/dist_ba.py``).
+    segsum (``segment_sum``): the depth sums' call, (payload, kd, order, Md)
+    -> [Md, K]; the runtime's CUDA graph of the window BA passes one that
+    cuts its capture there (``runtime/ba_graph.py``)."""
     r, w, Ji, Jj, Jz = (x.to(torch.float32) for x in _center_residuals(prob, bounds, res_clip))
     pi = prob.ii - prob.t0
     pj = prob.jj - prob.t0
@@ -142,7 +148,7 @@ def assemble_normal_eqs(prob: BAProblem, bounds, *, W: int, Md: int, res_clip: f
     kd = prob.kd.to(torch.int32)  # a no-op for the runtime's int32 indices
     order = prob.kd_order if prob.kd_order is not None else \
         torch.argsort(kd, stable=True).to(torch.int32)
-    sums = segment_sum(payload, kd, order, Md)
+    sums = segsum(payload, kd, order, Md)
     B6, v6, sums = allsum(B6, v6, sums)
     E6 = sums[:, : payload.shape[1] - 2].T
     C, u = sums[:, -2], sums[:, -1]
@@ -172,21 +178,45 @@ def schur_solve(B6, E6, C, u, v6, lmbda: float, nfree: int, *, W: int, ep: float
 
 
 def ba_delta(prob: BAProblem, bounds, lmbda: float, *, W: int, Md: int, ep: float = 1.0,
-             lm: float = 1e-4, res_clip: float = 128.0, allsum=no_sum):
-    """One Gauss-Newton step: returns (dX [W,6], dZ [Md]). allsum: as
-    ``assemble_normal_eqs`` takes it."""
+             lm: float = 1e-4, res_clip: float = 128.0, allsum=no_sum, segsum=segment_sum):
+    """One Gauss-Newton step: returns (dX [W,6], dZ [Md]). allsum, segsum:
+    as ``assemble_normal_eqs`` takes them."""
     B6, E6, C, u, v6 = assemble_normal_eqs(prob, bounds, W=W, Md=Md, res_clip=res_clip,
-                                           allsum=allsum)
+                                           allsum=allsum, segsum=segsum)
     return schur_solve(B6, E6, C, u, v6, lmbda, prob.nfree, W=W, ep=ep, lm=lm)
 
 
+def ba_bounds(intrinsics, border: float):
+    """The image bounds +- border that gate the BA's residuals, from frame
+    0's intrinsics [N, 4], on the device."""
+    cx, cy = intrinsics[0, 2], intrinsics[0, 3]
+    return torch.stack([torch.full_like(cx, -border), torch.full_like(cy, -border),
+                        2 * cx + border, 2 * cy + border])
+
+
 def apply_pose_retr(poses, dX, t0: int, nfree: int):
-    """poses[t0+l] <- Exp(dX[l]) * poses[t0+l] for l < nfree."""
+    """poses[t0+l] <- Exp(dX[l]) * poses[t0+l] for l < nfree. With 0-d
+    tensors t0 / nfree: ``apply_pose_retr_window``."""
+    if isinstance(t0, torch.Tensor) or isinstance(nfree, torch.Tensor):
+        return apply_pose_retr_window(poses, dX, t0, nfree)
     if nfree <= 0:
         return poses
     # no in-place write: training differentiates through the poses
     return torch.cat([poses[:t0], se3.retr(poses[t0:t0 + nfree], dX[:nfree]),
                       poses[t0 + nfree:]])
+
+
+def apply_pose_retr_window(poses, dX, t0, nfree):
+    """``apply_pose_retr`` with t0 and nfree 0-d device tensors (or ints),
+    read on the device alone: the W = len(dX) rows from t0 (modulo N, so
+    that a window at the buffer's end stays in range; W <= N keeps them
+    distinct) are gathered, retracted where l < nfree, and written back.
+    Row by row the bits of the host-int version."""
+    l = torch.arange(dX.shape[0], device=poses.device)
+    rows = (t0 + l) % poses.shape[0]
+    old = poses[rows]
+    new = torch.where((l < nfree)[:, None], se3.retr(old, dX), old)
+    return poses.index_copy(0, rows, new)
 
 
 def apply_depth_retr(depths, dZ, clamp_mode: str = "runtime"):
@@ -205,18 +235,19 @@ def apply_depth_retr(depths, dZ, clamp_mode: str = "runtime"):
 def ba(poses, patch_ctr, intrinsics, target, weight, valid, ii, jj, kd, t0: int, nfree: int,
        bounds, lmbda: float, *, W: int, Md: int, iterations: int = 2, ep: float = 1.0,
        lm: float = 1e-4, res_clip: float = 128.0, clamp_mode: str = "runtime", kd_order=None,
-       allsum=no_sum):
+       allsum=no_sum, segsum=segment_sum):
     """Run ``iterations`` damped Gauss-Newton steps; returns (poses', depths').
     allsum (``no_sum``): the sum of the normal equations' partials over the
     ranks that each hold a part of the edges (a training unroll split over
     the mesh's edge axis passes its edge axis's ``all_sum``); every
-    rank then solves the same system."""
+    rank then solves the same system. segsum (``segment_sum``): as
+    ``assemble_normal_eqs`` takes it."""
     depths = patch_ctr[:, 2]
     for _ in range(iterations):
         prob = BAProblem(poses, torch.cat([patch_ctr[:, :2], depths[:, None]], -1), intrinsics,
                          target, weight, valid, ii, jj, kd, t0, nfree, kd_order)
         dX, dZ = ba_delta(prob, bounds, lmbda, W=W, Md=Md, ep=ep, lm=lm, res_clip=res_clip,
-                          allsum=allsum)
+                          allsum=allsum, segsum=segsum)
         poses = apply_pose_retr(poses, dX, t0, nfree)
         depths = apply_depth_retr(depths, dZ, clamp_mode)
     return poses, depths

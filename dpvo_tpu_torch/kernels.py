@@ -13,11 +13,14 @@ CPU tests import every module of the package on machines without
 show that its main path went through the kernels. The counts are the
 recorder's ``launch.<kernel>`` counters (``utils/trace.py``), which take
 each count under a lock: classic loop closure's PGO launches from its own
-thread.
+thread. Inside ``recorded()`` a thread's launches are noted, not counted:
+a CUDA graph's capture launches nothing, and its replays count what it
+noted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -95,13 +98,31 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_recording = threading.local()   # .launches: the dict of an open recorded()
 
 
-def count(name: str):
-    """One launch of kernel `name` (thread-safe)."""
+def count(name: str, n: int = 1):
+    """n launches of kernel `name` (thread-safe), or noted in this
+    thread's open ``recorded()``."""
     if name not in KERNELS:
         raise KeyError(name)
-    trace.count("launch." + name)
+    noted = getattr(_recording, "launches", None)
+    if noted is not None:
+        noted[name] = noted.get(name, 0) + n
+    else:
+        trace.count("launch." + name, n)
+
+
+@contextlib.contextmanager
+def recorded():
+    """Yields a dict that takes this thread's launches inside, by kernel,
+    in place of the counters."""
+    outer = getattr(_recording, "launches", None)
+    _recording.launches = noted = {}
+    try:
+        yield noted
+    finally:
+        _recording.launches = outer
 
 
 def reset_launches():

@@ -9,8 +9,6 @@ from __future__ import annotations
 
 import torch
 
-from dpvo_tpu_torch.utils import trace
-
 _EPS = 1e-8
 
 
@@ -30,10 +28,11 @@ def quat_mul(q1, q2):
 
 
 def quat_inv(q):
-    """Conjugate (assumes unit quaternion). The sign vector is a blocking
-    copy from host memory where q is on a card."""
-    with trace.blocked("upload", "quat_inv", q.device):
-        sign = q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    """Conjugate (assumes unit quaternion): q * (-1, -1, -1, 1), the sign
+    vector filled on q's device, not copied from host memory (a CUDA
+    graph's capture takes no such copy, and on a card it would block)."""
+    sign = torch.full((4,), -1.0, dtype=q.dtype, device=q.device)
+    sign[3:].fill_(1.0)
     return q * sign
 
 

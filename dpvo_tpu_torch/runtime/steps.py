@@ -29,6 +29,7 @@ from dpvo_tpu_torch.ops.corr import avg_pool2d_nhwc
 from dpvo_tpu_torch.ops.corr_cuda import corr_features
 from dpvo_tpu_torch.ops.corr_pallas import (corr_features_pallas, corr_features_pallas_dma,
                                             corr_features_pallas_sw)
+from dpvo_tpu_torch.runtime import ba_graph
 from dpvo_tpu_torch.runtime.state import VOState
 from dpvo_tpu_torch.runtime.topology import EdgeSet
 from dpvo_tpu_torch.utils import trace
@@ -241,9 +242,7 @@ class StepFunctions:
 
     def _ba_bounds(self, state: VOState):
         """Image bounds +- BA_BORDER, from frame 0's intrinsics (device side)."""
-        cx, cy = state.intrinsics[0, 2], state.intrinsics[0, 3]
-        b = self.cfg.BA_BORDER
-        return torch.stack([torch.full_like(cx, -b), torch.full_like(cy, -b), 2 * cx + b, 2 * cy + b])
+        return ba_solver.ba_bounds(state.intrinsics, self.cfg.BA_BORDER)
 
     def _update(self, state: VOState, es: Dict[str, torch.Tensor], t0: int, nfree: int):
         """One tracking round: update operator + sliding-window BA."""
@@ -273,22 +272,37 @@ class StepFunctions:
 
     def _window_ba(self, state: VOState, es: Dict[str, torch.Tensor], target, weight, t0: int,
                    nfree: int):
+        """The sliding-window BA of a round, written into state: on a card a
+        replay of its CUDA graph (``runtime/ba_graph.py``) where the call
+        fits one, else eagerly (counted ``window_ba.eager``)."""
         with trace.span("window_ba"):
-            cfg = self.cfg
-            c = cfg.P // 2
+            graphs = ba_graph.lookup(self.cfg, self.device, es["dense2patch"].shape[0], nfree)
+            if graphs is not None:
+                graphs.run(state, es, target, weight, t0, nfree)
+                return
+            trace.count("window_ba.eager")
+            args, kwargs = self.window_ba_args(state, es, target, weight, t0, nfree)
+            poses, depths = ba_solver.ba(*args, **kwargs)
             nd = es["n_depths"]
-            Md = es["dense2patch"].shape[0]
-            d2p = es["dense2patch"][:nd]
-            ctr = torch.zeros((Md, 3), dtype=torch.float32, device=self.device)
-            ctr[:nd, :2] = state.patches[d2p, :2, c, c]
-            ctr[:nd, 2] = state.dvec[d2p]
-            poses, depths = ba_solver.ba(
-                state.poses, ctr, state.intrinsics, target, weight, es["valid"], es["ii"],
-                es["jj"], es["kd"], t0, nfree, self._ba_bounds(state), cfg.BA_LMBDA,
-                W=cfg.W_OPT_MAX, Md=Md, iterations=cfg.BA_ITERS, ep=cfg.BA_EP, lm=cfg.BA_LM,
-                res_clip=cfg.BA_RESIDUAL_CLIP, clamp_mode="runtime", kd_order=es["kd_order"])
             state.poses.copy_(poses)
-            state.dvec[d2p] = depths[:nd]
+            state.dvec[es["dense2patch"][:nd]] = depths[:nd]
+
+    def window_ba_args(self, state: VOState, es: Dict[str, torch.Tensor], target, weight,
+                       t0: int, nfree: int):
+        """(args, kwargs) of ``ba_solver.ba`` for the eager window BA of a
+        round: its patch centres, the state's poses and intrinsics, the
+        round's edges and the configuration's constants."""
+        cfg = self.cfg
+        Md = es["dense2patch"].shape[0]
+        ctr = ba_graph.write_centres(
+            torch.zeros((Md, 3), dtype=torch.float32, device=self.device), state,
+            es["dense2patch"][:es["n_depths"]], cfg.P // 2)
+        args = (state.poses, ctr, state.intrinsics, target, weight, es["valid"], es["ii"],
+                es["jj"], es["kd"], t0, nfree, self._ba_bounds(state), cfg.BA_LMBDA)
+        kwargs = dict(W=cfg.W_OPT_MAX, Md=Md, iterations=cfg.BA_ITERS, ep=cfg.BA_EP,
+                      lm=cfg.BA_LM, res_clip=cfg.BA_RESIDUAL_CLIP, clamp_mode="runtime",
+                      kd_order=es["kd_order"])
+        return args, kwargs
 
     def _probe(self, state: VOState, es: Dict[str, torch.Tensor]):
         """Motion probe: median |delta| over the probe edges with zero

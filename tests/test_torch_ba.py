@@ -281,3 +281,115 @@ def test_schur_solve_nonfinite_gives_zero_update():
     B6[0, 0] = float("nan")
     dX, dZ = tsolver.schur_solve(B6, E6, C, u, v6, 1e-4, 2, W=W)
     assert (dX == 0).all() and (dZ == 0).all()
+
+
+@pytest.mark.parametrize("t0,nfree", [(1, 0), (1, 5), (0, 8), (4, 3), (8, 8), (12, 4), (15, 1)])
+def test_pose_retraction_with_device_scalars_equals_host_ints(t0, nfree):
+    """The window retraction with t0 / nfree as 0-d tensors (the CUDA
+    graph's) gives the host-int version's bits: nfree 0, a full window,
+    and windows that end at the buffer's end (t0 + nfree == N), the W rows
+    from t0 then wrapping past it. dX is nonzero beyond nfree too."""
+    from dpvo_tpu_torch.lie import se3
+
+    g = torch.Generator().manual_seed(t0 * 16 + nfree)
+    N, W = 16, 8
+    poses = se3.exp(0.5 * torch.randn(N, 6, generator=g))
+    dX = 0.05 * torch.randn(W, 6, generator=g)
+    want = tsolver.apply_pose_retr(poses, dX, t0, nfree)
+    got = tsolver.apply_pose_retr(poses, dX, torch.tensor(t0), torch.tensor(nfree))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_quat_inv_equals_the_sign_product_bit_for_bit():
+    """so3.quat_inv (its sign vector filled on the device) against q * (-1,
+    -1, -1, 1) with the vector copied from the host, as it was: values,
+    signed zeros and the gradient, bit for bit, f32 and f64."""
+    from dpvo_tpu_torch.lie import so3
+
+    for dt, view in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+        q = torch.randn(40, 4, generator=torch.Generator().manual_seed(1), dtype=dt)
+        q[::3, 0] = 0.0
+        q[1::3, 1] = -0.0
+        q[2::5, 3] = -0.0
+        q[::7, 2] = 0.0
+        sign = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=dt)
+        a, b = q.clone().requires_grad_(), q.clone().requires_grad_()
+        got, want = so3.quat_inv(a), b * sign
+        assert torch.equal(got.detach().view(view), want.detach().view(view))
+        gout = torch.randn(40, 4, dtype=dt)
+        gout[::4] = -0.0
+        got.backward(gout)
+        want.backward(gout)
+        assert torch.equal(a.grad.view(view), b.grad.view(view))
+
+
+@pytest.mark.parametrize("bucket,Md,t0,nfree", [(2048, 64, 1, 5), (100, 80, 2, 3),
+                                                 (100, 64, 0, 0), (100, 80, 1, 5)])
+def test_bucket_padded_ba_with_device_scalars_matches_the_live_ba(monkeypatch, bucket, Md, t0,
+                                                                   nfree):
+    """The window BA as the runtime's CUDA graph runs it (``runtime/
+    ba_graph.WindowGraphs.load``: static buffers, the E = 384 live edges
+    padded to the bucket, 400 or E_MAX = 512 rows, t0 / nfree 0-d tensors)
+    against the steps' eager BA at the live length, on the CPU. Md = 64
+    puts the pad in the last live depth variable's run, Md = 80 in an empty
+    one. The solve as a replay runs it (cut at each segment sum, whose
+    payload has the handoff buffer's K columns and whose ids are the static
+    buffers', the sum taken over the live rows) gives the same values. Tolerance 1e-5: the pad rows add exact zeros to every sum, so the
+    two differ at most where a GEMM over the edge axis (B6 = Jw^T Jw, v6)
+    groups its f32 sums otherwise at the longer length (on this CPU they
+    came out equal); a few ulps there, carried through two solves of a
+    well-conditioned system, stay far below 1e-5 at unit scale, while the
+    BA moves the poses by ~0.04 and the depths by ~0.15."""
+    from types import SimpleNamespace
+
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.lie import se3 as tse3
+    from dpvo_tpu_torch.runtime import ba_graph
+
+    monkeypatch.setattr(ba_graph, "BUCKET", bucket)
+    poses, ctr, intr, target, ii, jj, kd = (np.array(x) for x in synthetic_problem(
+        jax.random.PRNGKey(3), noise=0.5))
+    n, npts, N, c = poses.shape[0], ctr.shape[0], 16, 1
+    cfg = Config(BUFFER_SIZE=N, E_MAX=512, M_OPT_MAX=Md, W_OPT_MAX=8, P=3)
+    g = torch.Generator().manual_seed(0)
+    st = SimpleNamespace(poses=tse3.identity((N,)), patches=torch.zeros(256, 3, 3, 3),
+                         dvec=torch.zeros(256), intrinsics=torch.zeros(N, 4))
+    st.poses[:n] = tse3.retr(_t(poses), 0.02 * torch.randn(n, 6, generator=g) * (
+        torch.arange(n) > 0)[:, None])
+    st.intrinsics[:n] = _t(intr)
+    d2p = torch.arange(npts) * 2 + 3
+    dense2patch = torch.full((Md,), 255)
+    dense2patch[:npts] = d2p
+    st.patches[d2p, 0, c, c], st.patches[d2p, 1, c, c] = _t(ctr[:, 0]), _t(ctr[:, 1])
+    st.dvec[d2p] = 1.2 * _t(ctr[:, 2])
+    E = len(ii)
+    kd_t = _t(kd).int()
+    es = dict(ii=_t(ii).long(), jj=_t(jj).long(), kd=kd_t,
+              kd_order=torch.argsort(kd_t, stable=True).int(), valid=torch.ones(E, dtype=bool),
+              dense2patch=dense2patch, n_depths=npts)
+    tgt, w = _t(target), torch.rand(E, 2, generator=g) + 0.1
+    ctr0 = ba_graph.write_centres(torch.zeros(Md, 3), st, d2p, c)
+    want_p, want_d = tsolver.ba(
+        st.poses, ctr0, st.intrinsics, tgt, w, es["valid"], es["ii"], es["jj"], es["kd"], t0,
+        nfree, tsolver.ba_bounds(st.intrinsics, cfg.BA_BORDER), cfg.BA_LMBDA, W=8, Md=Md,
+        iterations=cfg.BA_ITERS, clamp_mode="runtime", kd_order=es["kd_order"])
+    graphs = ba_graph.WindowGraphs(cfg, torch.device("cpu"), Md)
+    B = graphs.load(st, es, tgt, w, t0, nfree)
+    assert B == min(-(-E // bucket) * bucket, 512) > E
+    assert graphs.t0.dim() == 0 and graphs.t0.dtype == torch.int64
+    got_p, got_d = graphs._solve(B)
+    seen = []
+
+    def cut(payload, kd, order, Md_):
+        """What a capture's cut receives; what a replay sums: the live rows."""
+        seen.append((tuple(payload.shape), kd.data_ptr(), order.data_ptr(), Md_))
+        return torch.ops.dpvo_tpu_torch.segment_sum(payload[:E], kd[:E], order[:E], Md_)
+
+    cut_p, cut_d = graphs._solve(B, cut)
+    assert torch.equal(cut_p, got_p) and torch.equal(cut_d, got_d)
+    assert seen == [((B, graphs.K), graphs.kd.data_ptr(), graphs.kd_order.data_ptr(), Md)] * 2
+    np.testing.assert_allclose(got_p.numpy(), want_p.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_d.numpy(), want_d.numpy(), rtol=1e-5, atol=1e-6)
+    if nfree:
+        assert (want_p - st.poses).abs().max() > 1e-2
+    assert (want_d - ctr0[:, 2]).abs().max() > 1e-1

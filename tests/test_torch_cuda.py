@@ -976,3 +976,254 @@ def test_steady_frame_sync_count_matches_sync_debug_mode(dev):
               f"{syncs() - before} counted")
         assert warned > 0 and syncs() - before == warned
     trace.drain()
+
+
+def _window_case(seed=0, n=12, N=16, per_frame=40):
+    """A sliding-window problem on the CPU for the runtime's window BA: n
+    frames of a camera moving forward in a buffer of N, per_frame patches
+    anchored in each frame and seen from the frames up to two away; the
+    targets the true projections plus 0.5 px of noise, the poses after the
+    first perturbed by ~0.02 and the inverse depths by ~20%. Returns the
+    state and the edges in a random order."""
+    from types import SimpleNamespace
+
+    from dpvo_tpu_torch.geom import projective as pops
+    from dpvo_tpu_torch.lie import se3
+
+    g = torch.Generator().manual_seed(seed)
+    xi = torch.cat([0.1 * torch.randn(n, 3, generator=g) + torch.tensor([0.0, 0.0, 0.1]),
+                    0.02 * torch.randn(n, 3, generator=g)], -1)
+    truth = se3.identity((N,))
+    for i in range(1, n):
+        truth[i] = se3.mul(se3.exp(xi[i]), truth[i - 1])
+    K = N * per_frame
+    patches = torch.zeros(K, 3, 3, 3)
+    patches[:, 0] = (20 + 120 * torch.rand(K, generator=g))[:, None, None]
+    patches[:, 1] = (15 + 90 * torch.rand(K, generator=g))[:, None, None]
+    patches[:, 2] = (0.3 + 0.5 * torch.rand(K, generator=g))[:, None, None]
+    intr = torch.tensor([120.0, 120.0, 80.0, 60.0]).repeat(N, 1)
+    kk = torch.cat([torch.arange(f * per_frame, (f + 1) * per_frame)
+                    for f in range(n) for j in range(max(0, f - 2), min(n, f + 3))])
+    jj = torch.cat([torch.full((per_frame,), j)
+                    for f in range(n) for j in range(max(0, f - 2), min(n, f + 3))])
+    ii = kk // per_frame
+    target = pops.transform(truth, patches, intr, ii, jj, kk)[:, 1, 1]
+    target = target + 0.5 * torch.randn(target.shape, generator=g)
+    weight = 0.1 + torch.rand(target.shape, generator=g)
+    poses = truth.clone()
+    poses[1:n] = se3.retr(truth[1:n], 0.02 * torch.randn(n - 1, 6, generator=g))
+    dvec = patches[:, 2, 1, 1] * (1 + 0.2 * torch.randn(K, generator=g)).clamp(0.5, 1.5)
+    perm = torch.randperm(len(kk), generator=g)
+    state = SimpleNamespace(poses=poses, patches=patches, dvec=dvec, intrinsics=intr)
+    return state, dict(ii=ii[perm], jj=jj[perm], kk=kk[perm], target=target[perm],
+                       weight=weight[perm])
+
+
+def _window_edges(edges, E: int, Md: int, dev):
+    """The first E edges as the runtime's edge tensors (``steps.
+    edge_tensors``' dtypes: int64 frames, int32 kernel indices), their dense
+    depth variables padded to Md, and their target and weight."""
+    kk = edges["kk"][:E]
+    uniq, kd = torch.unique(kk, sorted=True, return_inverse=True)
+    d2p = torch.full((Md,), 1 << 20)
+    d2p[:len(uniq)] = uniq
+    kd = kd.int()
+    es = dict(ii=edges["ii"][:E], jj=edges["jj"][:E], kd=kd,
+              kd_order=torch.argsort(kd, stable=True).int(), valid=torch.ones(E, dtype=bool),
+              dense2patch=d2p)
+    es = {k: v.to(dev) for k, v in es.items()}
+    es["n_depths"] = len(uniq)
+    return es, edges["target"][:E].to(dev), edges["weight"][:E].to(dev)
+
+
+def _strong_depths(es):
+    """[n_depths] bool: the depth variables seen from three or more frames
+    other than their own. A variable seen less has a near-singular C + lambda
+    (lambda = 1e-4), which multiplies rounding in E6^T dX by up to 1e4: the
+    eager step has that sensitivity as it is, so such depths are compared
+    for finiteness alone."""
+    other = (es["ii"] != es["jj"]).long()
+    seen = torch.zeros(es["n_depths"], dtype=torch.long, device=other.device)
+    return seen.index_add_(0, es["kd"].long(), other) >= 3
+
+
+def _window_steps(dev, monkeypatch, bucket=512):
+    """The runtime's steps for _window_case (E_MAX 4096, M_OPT_MAX 512,
+    W_OPT_MAX 8) with a fresh graph cache and buckets of ``bucket`` rows;
+    and the case's state on the card."""
+    from dpvo_tpu_torch.config import Config
+    from dpvo_tpu_torch.runtime import ba_graph
+    from dpvo_tpu_torch.runtime.steps import StepFunctions
+
+    monkeypatch.setattr(ba_graph, "_caches", {})
+    monkeypatch.setattr(ba_graph, "BUCKET", bucket)
+    cfg = Config(BUFFER_SIZE=16, E_MAX=4096, M_OPT_MAX=512, W_OPT_MAX=8, P=3)
+    state, edges = _window_case()
+    for k, v in vars(state).items():
+        setattr(state, k, v.to(dev))
+    return StepFunctions(cfg, None, dev), state, edges
+
+
+def _window_gaps(got, want, es):
+    """(largest pose difference, largest relative difference of the
+    well-observed depth variables); every depth finite."""
+    d2p = es["dense2patch"][:es["n_depths"]]
+    assert torch.isfinite(got.dvec[d2p]).all() and torch.isfinite(got.poses).all()
+    strong = d2p[_strong_depths(es)]
+    dd = (got.dvec[strong] - want.dvec[strong]).abs() / want.dvec[strong].abs()
+    return (got.poses - want.poses).abs().max().item(), dd.max().item()
+
+
+def _copy_state(state):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{k: v.clone() for k, v in vars(state).items()})
+
+
+def _eager_window_ba(monkeypatch, steps, state, *args):
+    from dpvo_tpu_torch.runtime import ba_graph
+
+    with monkeypatch.context() as m:
+        m.setattr(ba_graph, "lookup", lambda *a: None)
+        steps._window_ba(state, *args)
+
+
+# (live edges, t0): E within the bucket of 1024 rows (600-1000), across
+# two buckets (1100: 1536, 1600: 2048) and back; t0 advancing
+WINDOW_RUN = ((600, 1), (700, 1), (1000, 2), (1024, 2), (1100, 3), (1600, 4), (900, 5),
+              (1500, 6))
+
+
+@pytest.mark.parametrize("stream", ["default", "own"])
+def test_window_ba_replay_matches_the_eager_step(dev, monkeypatch, stream):
+    """``StepFunctions._window_ba`` replaying its CUDA graph against the
+    same step run eagerly, from the same state, over a run of rounds whose
+    edge count moves inside one bucket and across two and whose window
+    advances; the state carried on from the eager result. On the legacy
+    default stream the graphs are captured on a side stream, on a stream
+    of the caller's own on it. Tolerance: the padded GEMMs' f32 summation
+    order (B6 and v6 over 2B rows, not 2E) carried through two solves, on
+    the poses and the well-observed depths (``_strong_depths``; on the CPU
+    the same comparison reads ~2e-6 there, and up to 3% on the others)."""
+    from dpvo_tpu_torch.runtime import ba_graph
+
+    steps, state, edges = _window_steps(dev, monkeypatch)
+    ctx = torch.cuda.stream(torch.cuda.Stream(dev)) if stream == "own" else torch.cuda.stream(
+        torch.cuda.default_stream(dev))
+    worst = [0.0, 0.0]
+    with ctx:
+        for E, t0 in WINDOW_RUN:
+            nfree = min(8, 12 - t0)
+            es, target, weight = _window_edges(edges, E, 512, dev)
+            got, want = _copy_state(state), _copy_state(state)
+            steps._window_ba(got, es, target, weight, t0, nfree)
+            _eager_window_ba(monkeypatch, steps, want, es, target, weight, t0, nfree)
+            torch.cuda.synchronize()
+            assert (want.poses - state.poses).abs().max() > 1e-3   # the BA moved them
+            dp, dd = _window_gaps(got, want, es)
+            worst = [max(worst[0], dp), max(worst[1], dd)]
+            assert dp <= 1e-4 and dd <= 1e-4, (E, t0, dp, dd)
+            state = want
+    (graphs,) = ba_graph._caches.values()
+    assert sorted(graphs.graphs) == [1024, 1536, 2048, 4096]   # E_MAX's captured first
+    print(f"replay against eager, {stream} stream: poses {worst[0]:.3g}, "
+          f"depths {worst[1]:.3g} (relative)")
+
+
+def test_window_ba_counters_and_launch_counts(dev, monkeypatch):
+    """A capture per bucket, E_MAX's first, and a replay per call; each
+    replay counts the segment sums and SPD solves of its BA_ITERS = 2
+    iterations, and the cache's one eager run before its first capture
+    counts its own."""
+    from dpvo_tpu_torch import kernels
+    from dpvo_tpu_torch.utils import trace
+
+    steps, state, edges = _window_steps(dev, monkeypatch)
+    before = dict(trace.COUNTS)
+    for E, t0 in WINDOW_RUN:
+        steps._window_ba(state, *_window_edges(edges, E, 512, dev), t0, min(8, 12 - t0))
+    torch.cuda.synchronize()
+    delta = {k: v - before.get(k, 0) for k, v in trace.COUNTS.items()
+             if v != before.get(k, 0)}
+    n = len(WINDOW_RUN)
+    assert delta == {"window_ba.replay": n, "window_ba.capture": 4,
+                     "launch.segsum": 2 * n + 2, "launch.spd_solve": 2 * n + 2}
+    assert kernels.LAUNCHES["segsum"] == trace.COUNTS["launch.segsum"]
+
+
+def test_window_ba_replays_allocate_nothing(dev, monkeypatch):
+    """torch.cuda.memory_allocated stays flat over 100 replays."""
+    steps, state, edges = _window_steps(dev, monkeypatch)
+    args = _window_edges(edges, 1100, 512, dev)
+    steps._window_ba(state, *args, 2, 8)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    for _ in range(100):
+        steps._window_ba(state, *args, 2, 8)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == m0
+    assert torch.isfinite(state.poses).all()
+
+
+def test_window_ba_replay_after_segsum_workspace_growth(dev, monkeypatch):
+    """An eager segment sum on the graphs' stream that grows the kernel's
+    workspace, then tensors of the old workspace's sizes filled with 7s
+    (which would take its memory, were anything still to read it): the next
+    replay, whose padded rows make a run of more than CHUNK rows that goes
+    through the workspace, still matches the eager step."""
+    from dpvo_tpu_torch.ba import segsum
+
+    steps, state, edges = _window_steps(dev, monkeypatch)
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.stream(stream):
+        es, target, weight = _window_edges(edges, 1100, 512, dev)  # 436 padded rows
+        steps._window_ba(_copy_state(state), es, target, weight, 2, 8)
+        key = (dev.index or 0, stream.cuda_stream)
+        old = segsum._workspaces[key]
+        E2, K2 = 300_000, 64
+        kd = torch.randint(0, 1000, (E2,), device=dev, dtype=torch.int32)
+        segsum.segment_sum(torch.ones(E2, K2, device=dev), kd,
+                           torch.argsort(kd, stable=True).int(), 1000)
+        new = segsum._workspaces[key]
+        assert all(a.data_ptr() != b.data_ptr() for a, b in zip(old, new))
+        junk = [torch.full_like(t, 7) for t in old]
+        del old
+        got, want = _copy_state(state), _copy_state(state)
+        steps._window_ba(got, es, target, weight, 2, 8)
+        _eager_window_ba(monkeypatch, steps, want, es, target, weight, 2, 8)
+        torch.cuda.synchronize()
+    del junk
+    assert max(_window_gaps(got, want, es)) <= 1e-4
+
+
+def test_window_ba_one_cache_serves_successive_streams(dev, monkeypatch):
+    """Trackers on new streams one after another (the benchmark's
+    calibration makes a stream a seed) share the first stream's cache: one
+    cache on the first stream, no capture after the first stream's, each
+    stream's replay matching the eager step, and no memory held after a
+    call (the handoff buffer goes back to its pool)."""
+    from dpvo_tpu_torch.runtime import ba_graph
+    from dpvo_tpu_torch.utils import trace
+
+    steps, state, edges = _window_steps(dev, monkeypatch)
+    es, target, weight = _window_edges(edges, 1100, 512, dev)
+    first = torch.cuda.Stream(dev)
+    with torch.cuda.stream(first):
+        want = _copy_state(state)
+        steps._window_ba(_copy_state(state), es, target, weight, 2, 8)
+        _eager_window_ba(monkeypatch, steps, want, es, target, weight, 2, 8)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    captures = trace.COUNTS.get("window_ba.capture", 0)
+    for _ in range(3):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            got = _copy_state(state)
+            steps._window_ba(got, es, target, weight, 2, 8)
+        torch.cuda.synchronize()
+        assert max(_window_gaps(got, want, es)) <= 1e-4
+        del got
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(dev) == m0
+    (graphs,) = ba_graph._caches.values()
+    assert trace.COUNTS.get("window_ba.capture", 0) == captures and len(graphs.graphs) == 2
+    assert graphs.stream == first
