@@ -6,7 +6,10 @@ segment a sequence, summarized in memory.
 The summary holds every device operation (kernel, copy, set) as (name,
 start us, end us) on the profiler's one clock, which all streams of the
 process share; ``busy_s`` is the length of the union of their intervals
-and ``window_s`` the span from the first start to the last end.
+and ``window_s`` the span from the first start to the last end;
+``trace_start_ns`` is the profile's start on the host's clock
+(``time.time_ns()``), where the port's spans lie
+(``program_trace.py``).
 """
 
 from __future__ import annotations
@@ -32,9 +35,12 @@ def _device_events(prof):
 
 
 def summarize(prof) -> dict:
+    from bench_port.harness import trace_start_ns
+
     ops = sorted(_device_events(prof), key=lambda o: o[1])
+    t0 = trace_start_ns(prof)
     if not ops:
-        return dict(ops=[], kernels=0, busy_s=0.0, window_s=0.0, gaps=[])
+        return dict(ops=[], kernels=0, busy_s=0.0, window_s=0.0, gaps=[], trace_start_ns=t0)
     busy, gaps = 0.0, []
     cur_s, cur_e, cur_name = ops[0][1], ops[0][2], ops[0][0]
     for name, s, e in ops[1:]:
@@ -49,7 +55,7 @@ def summarize(prof) -> dict:
     busy += cur_e - cur_s
     window = max(e for _, _, e in ops) - ops[0][1]
     return dict(ops=ops, kernels=sum(1 for o in ops if not o[0].startswith(_NOT_KERNELS)),
-                busy_s=busy * 1e-6, window_s=window * 1e-6, gaps=gaps)
+                busy_s=busy * 1e-6, window_s=window * 1e-6, gaps=gaps, trace_start_ns=t0)
 
 
 def device_time_s(summary: dict, substrings) -> float:

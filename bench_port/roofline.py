@@ -3,8 +3,9 @@ bound, and the work of each kernel and of the model counted from shapes.
 
 ``PEAK_*`` and ``bound`` are copies of ``chip_smoke.py:173-175`` and
 ``:345``; ``corr_cost`` of the corr row's count (``chip_smoke.py:
-410-412``) and ``segsum_cost`` of the segment-sum rows' (``:525-532``),
-both at the live edge count (the port pads nothing on the tracker's
+410-412``), ``segsum_cost`` of the segment-sum rows' (``:525-532``) and
+``corr_bwd_cost`` of the correlation backward's row (``:619-626``),
+each at the live edge count (the port pads nothing on the tracker's
 path, so the capacity E_cap there is E). The model's FLOP counts are the
 products of both encoders at the frame size, of the update operator per
 live edge, and of the correlation's dots.
@@ -38,6 +39,22 @@ def corr_cost(E: int, nframes: int, nrows: int, H1: int, W1: int, C: int):
 
 def corr_flops(E: int, C: int) -> float:
     return E * 2 * 9 * 64 * C * 2
+
+
+def corr_bwd_cost(E: int, Np: int, mem: int, H1: int, W1: int, H2: int, W2: int, C: int,
+                  valid: int, elsize: int = 2):
+    """(bytes, FLOP) of one correlation backward (``csrc/corr_bwd.cu``,
+    both kernels, and the patch gradients' sum into the gmap rows) of E
+    edges over Np patch rows [C, 3, 3] and mem frames of maps (H1 x W1, H2
+    x W2, C): the incoming gradient [E, 9, 2 * 64] (bf16), the features
+    (gmap and both maps, ``elsize`` bytes) and the f32 coordinates [E, 9,
+    2] read once with the int32 ii1/jj1 and bool valid, the three
+    gradients written once in the features' dtype; 2 FLOP a multiply-add
+    of the ``valid`` edges' 9 pixels x 64 window positions x C, at both
+    levels, twice (the patch and the map gradients)."""
+    feats = Np * C * 9 + mem * (H1 * W1 + H2 * W2) * C
+    nbytes = E * 9 * 128 * 2 + feats * elsize + E * 9 * 2 * 4 + E * 9 + feats * elsize
+    return nbytes, valid * 2 * 9 * 64 * C * 2 * 2
 
 
 def segsum_cost(E: int, K: int, Md: int, elsize: int):

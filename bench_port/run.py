@@ -2,15 +2,49 @@
 
     python3 bench_port/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up builds the port's kernels once (``dpvo_tpu_torch/_build/``), makes
-the cell's sequences from the seed, loads the weights and warms the
-stream up; the stream then tracks whole sequences, each tracker's
-construction, frames and ``terminate()``, until ``--seconds`` of the wall
-clock have passed (``window.py``). Once the window has closed and the peak memory is read,
-the trackers are freed and the plain reference makes each checked call
-again (``judge.py``). The last line of standard output is the result: with
+The cell's configuration (``configs/<config>.json``) names the runner that
+runs it: ``"runner": "<name>"`` loads ``runners/<name>.py`` by its file, as
+the traffic generators (``traffic/``) and the metric readers
+(``metrics/``) are loaded; without the key the runner is ``stream``, the
+camera stream of the tracker's cells. A later cell brings a runner of its
+own as a new file, with no edit here.
+
+A runner is a module with a function ``run(cell, config, traffic, seed,
+seconds, trace, device, root, log, started, **hooks)``. It gets the cell's
+entry of ``BENCHMARK.json``, its configuration and traffic files as
+dicts, the seed, the window's seconds, whether the run is traced, the
+``torch.device`` (a card, or the CPU in the tests), the checkout whose
+``bench_port/`` data it reads, a ``log`` for standard error, the
+process's start on ``time.perf_counter()`` (set-up is measured from it)
+and the tests' hooks (a control or a fault in the program's place). It
+builds and warms the program, measures ``seconds`` of the wall clock,
+reads the peak memory, frees the program and has the plain reference
+decide ``correct``. It returns a dict:
+
+  ctx        what the readers read (``metrics/<name>.py``): at least
+             ``setup_s`` and ``peak_bytes`` (the window's peak of allocated
+             device memory, the result's ``memory_peak_bytes``), and what
+             each of the cell's metrics reads
+  attempted, failed
+             the units of work the window attempted and those that failed
+  correct    the verdict of the reference's comparison
+  checks     each number compared: {name: {"value", "limit"}}
+  profile    with ``trace``: ``profile_window.summarize`` of the traced
+             seconds (``busy_s``, ``window_s``, the breakdown), else None
+  breakdown  further lists for the result's breakdown, or {}
+
+A runner also has ``calibrate(config, traffic, seeds, control_seeds,
+fault_seeds, device, root, emit)``, which ``calibrate.py`` calls: the
+readings that the limits of ``correct`` are set from, one dict a reading
+to ``emit``, returning each side's extreme of every number.
+
+This module prints the result, its last line of standard output: with
 ``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
-per-layer metrics, each read by ``metrics/<name>.py``. Without a card,
+per-layer metrics, each read by ``metrics/<name>.py`` from ``ctx`` (a
+reader that finds nothing returns None, and the metric is left out).
+With ``--trace 1`` the stream runner turns the port's recorder on over
+the window, and its spans and counters reach the readers as
+``ctx["program_spans"]`` and ``ctx["program_counts"]``. Without a card,
 with fewer cards than the cell asks for, or with JAX or the JAX package
 loaded at the end, the run exits nonzero and prints no result.
 """
@@ -32,11 +66,7 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 if sys.path and Path(sys.path[0]).resolve() == ROOT / "bench_port":
     sys.path[0] = str(ROOT)  # the harness's modules by their package names only
-FORBIDDEN = {"jax", "jaxlib", "flax", "dpvo_tpu"}
-
-
-class NoCard(RuntimeError):
-    pass
+from bench_port.harness import FORBIDDEN, NoCard  # noqa: E402
 
 
 def load_cell(bench: dict, name: str, root: Path = ROOT):
@@ -70,147 +100,48 @@ def read_metric(root: Path, name: str, ctx: dict):
     return load_module(root, "metrics", name).read(ctx)
 
 
-def smi_utilization() -> str:
-    """``nvidia-smi``'s utilization.gpu now (a cross-check of the device's
-    idle share; the tool samples over its own period)."""
-    import subprocess
-
-    try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=utilization.gpu",
-                               "--format=csv,noheader,nounits"], capture_output=True,
-                              text=True, timeout=10).stdout.strip() or "not read"
-    except (OSError, subprocess.SubprocessError):
-        return "not read"
-
-
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device=None,
-             root: Path = ROOT, log=print, tracker=None) -> dict:
+             root: Path = ROOT, log=print, **hooks) -> dict:
     """Run the cell and return the result's object. ``device`` None takes
     the card (``NoCard`` without one); tests pass ``"cpu"``. ``root``: the
-    checkout whose ``BENCHMARK.json`` and ``bench_port/`` data and readers
-    are read (the harness's own modules and the port are this one's).
-    ``tracker(config, weights, device, seq)``: what tracks in the port's
-    place (the tests' control and faults); the port's ``DPVO`` by default."""
-    import numpy as np
+    checkout whose ``BENCHMARK.json`` and ``bench_port/`` data, runners and
+    readers are read (the harness's own modules and the port are this
+    one's). ``hooks`` go to the runner (the tests' control and faults)."""
     import torch
+
+    from bench_port import harness, profile_window
 
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     root = Path(root)
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cell, config, traffic = load_cell(bench, workload, root)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise NoCard("no CUDA device is available")
-        if torch.cuda.device_count() < cell["chips"]:
-            raise NoCard(f"the cell asks for {cell['chips']} cards, "
-                         f"{torch.cuda.device_count()} available")
-        device = "cuda:0"
-    device = torch.device(device)
-    cuda = device.type == "cuda"
+    device = harness.card(cell, device)
     torch.set_num_threads(1)
-
-    from dpvo_tpu_torch import kernels
-    from dpvo_tpu_torch.config import Config
-    from dpvo_tpu_torch.runtime.dpvo import DPVO
-    from dpvo_tpu_torch.runtime.weights import load_npz
-
-    from bench_port import judge, profile_window, window
-    from bench_port.stats import sub_seed
-
-    phases = {"imports": time.perf_counter() - T_START}
-    if cuda:
-        kernels.build()
-    phases["kernel build"] = time.perf_counter() - T_START
-    cfg = Config(**config["config"])
-    ht, wd = config["ht"], config["wd"]
-    weights = load_npz(str(root / config["weights"])) if config.get("weights") else None
-    gen = load_module(root, "traffic", traffic["kind"])
-    K = cfg.PATCHES_PER_FRAME * (3 if cfg.CENTROID_SEL_STRAT == "GRADIENT_BIAS" else 1)
-    seqs = gen.make_sequences(traffic, seed, ht, wd, cfg.RES, K, cfg.PATCHES_PER_FRAME, device)
-    phases["weights, sequences"] = time.perf_counter() - T_START
-
-    probe = window.Probe()
-    if trace and cuda:
-        from dpvo_tpu_torch.ba import segsum as segsum_mod
-
-        real_kernel = segsum_mod._segment_sum_kernel
-
-        def counted_kernel(payload, kd, order, Md):
-            probe.add("segsum", (int(payload.shape[0]), int(payload.shape[1]), int(Md),
-                                 payload.element_size()))
-            return real_kernel(payload, kd, order, Md)
-
-        segsum_mod._segment_sum_kernel = counted_kernel
-
-    if tracker is None:
-        make = lambda seq: DPVO(cfg, weights, ht, wd, device=device, draws=seq.draws)
-    else:
-        make = lambda seq: tracker(config, weights, device, seq)
-    smi = lambda: log(f"nvidia-smi utilization.gpu before the profiled seconds: "
-                      f"{smi_utilization()} %")
-    stream = window.StreamRun(seqs, make, device, trace, probe,
-                              window.plan_checks(traffic.get("checks", []),
-                                                 sub_seed(seed, 0xC4EC), traffic["frames"]),
-                              traffic["warm_frames"],
-                              traffic["profile_seconds"] if trace else 0.0, smi)
-    stream.warm()
-    phases["warm-up"] = time.perf_counter() - T_START
-    if cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    setup_s = time.perf_counter() - T_START
-    log("set-up, seconds from the start to the end of each phase: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
-    stream.run(seconds)
-    if cuda:
-        torch.cuda.synchronize(device)
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    summary = profile_window.combine(stream.profiles) if stream.profiles else None
-
-    lat = stream.latencies
-    frames = len(lat)
-    spans = {k: [a.elapsed_time(b) for a, b in stream.spans[k]] for k in window.LAYERS}
-    ctx = dict(frames=frames, window_s=stream.window_s, latencies_ms=[x * 1e3 for x in lat],
-               setup_s=setup_s, peak_bytes=peak, spans_ms=spans,
-               gba_round_ms=[x * 1e3 for x in stream.gba_host_s], profile=summary,
-               profile_frames=stream.profiled_frames, corr_calls=list(probe.corr),
-               segsum_calls=list(probe.segsum), edge_rounds=list(stream.edge_rounds),
-               patchifies=stream.patchifies, config=config["config"], ht=ht, wd=wd)
-    checks = stream.checks
-    expected = len(checks)
-    terminated = stream.sequences
-    q = np.percentile(np.asarray(lat) * 1e3, [50, 90, 95, 99, 100]) if lat else [np.nan] * 5
-    log(f"frames {frames} in a window of {stream.window_s:.3f} s; latency ms median {q[0]:.3f} "
-        f"p90 {q[1]:.3f} p95 {q[2]:.3f} p99 {q[3]:.3f} max {q[4]:.3f}, samples {len(lat)}; "
-        f"sequences terminated {terminated}; setup {setup_s:.3f} s; "
-        f"peak {peak} bytes")
-    if trace:
-        log(f"global-BA rounds in the window {len(ctx['gba_round_ms'])}; profiled frames "
-            f"{ctx['profile_frames']}")
-    del stream, make
-    if cuda:
-        torch.cuda.empty_cache()
-    rows = judge.judge(checks, seqs, config["config"], weights, ht, wd, device)
-    for r in rows:
-        log("check " + " ".join(f"{k}={v}" for k, v in r.items()))
-    correct, numbers = judge.verdict(rows, config.get("limits", {}), expected)
+    name = config.get("runner", "stream")
+    if not (root / "bench_port" / "runners" / f"{name}.py").is_file():
+        raise KeyError(f"no runner {name!r} (bench_port/runners/{name}.py) for {workload}")
+    runner = load_module(root, "runners", name)
+    out = runner.run(cell, config, traffic, seed, seconds, trace, device, root, log, T_START,
+                     **hooks)
 
     metrics = {}
     for m in cell_metrics(bench, workload, trace):
-        v = read_metric(root, m["name"], ctx)
+        v = read_metric(root, m["name"], out["ctx"])
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    cuda = device.type == "cuda"
     dev = {"platform": "gpu" if cuda else device.type,
            "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": peak}
-    result = {"correct": bool(correct), "attempted": frames, "failed": 0, "metrics": metrics,
-              "device": dev}
+           "count": cell["chips"], "memory_peak_bytes": out["ctx"]["peak_bytes"]}
+    result = {"correct": bool(out["correct"]), "attempted": out["attempted"],
+              "failed": out["failed"], "metrics": metrics, "device": dev}
+    summary = out.get("profile")
     if trace and summary is not None:
         dev["busy_s"] = summary["busy_s"]
         dev["window_s"] = summary["window_s"]
-        result["breakdown"] = profile_window.breakdown(summary)
-    result["checks"] = numbers
+        result["breakdown"] = {**profile_window.breakdown(summary), **out.get("breakdown", {})}
+    result["checks"] = out["checks"]
     return result
 
 

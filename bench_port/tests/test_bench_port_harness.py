@@ -27,8 +27,14 @@ def test_every_cell_loads_by_name(cell):
     w, config, traffic = load_cell(BENCH, cell)
     assert w["chips"] == 1 and len(w["why"]) <= 200
     gen = load_module(ROOT, "traffic", traffic["kind"])
-    assert callable(gen.make_sequences)
-    assert set(config["limits"]) >= {"feat_gap", "pose_gap", "structure"}
+    runner = load_module(ROOT, "runners", config.get("runner", "stream"))
+    assert callable(runner.run)
+    if "runner" in config:   # the training cells
+        assert callable(gen.make_clips) and config["runner"] == "train"
+        assert set(config["limits"]) == set(runner.NUMBERS)
+    else:
+        assert callable(gen.make_sequences)
+        assert set(config["limits"]) >= {"feat_gap", "pose_gap", "structure"}
     assert (ROOT / config["weights"]).exists()
 
 
@@ -44,13 +50,17 @@ def test_names_units_and_bounds():
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in BENCH["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    cells = {w["name"] for w in BENCH["workloads"]}
+    reports = {e["name"]: set(e.get("workloads", cells)) for e in BENCH["end_to_end"]}
     for m in BENCH["per_layer"]:
-        assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
-        assert set(m["workloads"]) <= {w["name"] for w in BENCH["workloads"]}
+        assert set(m["workloads"]) <= reports[m["moves"]] <= cells
+    for cell in cells:   # setup_s, another end-to-end metric and a per-layer one
+        assert sum(cell in r for r in reports.values()) >= 2 and reports["setup_s"] == cells
+        assert any(cell in m["workloads"] for m in BENCH["per_layer"])
     layers = {}
     for m in BENCH["per_layer"]:
         layers.setdefault(m["layer"], set()).add(m["name"])
-    assert len(layers["kernels: csrc/*.cu"]) == 2
+    assert len(layers["kernels: csrc/*.cu"]) == 3
     assert len(json.dumps(BENCH)) <= 64 * 1024
 
 
@@ -136,7 +146,8 @@ def test_readers_on_a_fixed_run():
                edge_rounds=[], patchifies=0, config={}, ht=480, wd=640)
     get = lambda n: read_metric(ROOT, n, ctx)
     assert get("frames_per_s") == 5.0
-    assert get("frame_ms_p95") == pytest.approx(9.55)
+    assert get("traced_frames_per_s") == 5.0
+    assert get("traced_frame_ms_p95") == pytest.approx(9.55)
     assert get("peak_mem_gib") == 2.0
     assert get("patchify_ms") == 1.0 and get("edge_forward_ms") is None
     assert get("launches_per_frame") == 2.0
@@ -148,6 +159,85 @@ def test_readers_on_a_fixed_run():
     assert get("segsum_roofline") == pytest.approx(
         100 * bound(*segsum_cost(1000, 98, 500, 4), PEAK_F32)[0] / 0.1)
     assert get("mfu_pct") is None and get("gba_round_ms") is None
+    assert get("corr_bwd_roofline") is None   # no training step profiled
+
+
+def test_the_training_readers_on_a_fixed_step():
+    """corr_bwd_roofline, corr_roofline, segsum_roofline, launches_per_frame,
+    mfu_pct and frames_per_s on a synthetic profile of one training step,
+    its correlation calls as the ``corr`` probe records them."""
+    import torch
+
+    from bench_port.harness import corr_shapes
+    from bench_port.roofline import (PEAK_BF16, PEAK_F32, bound, corr_bwd_cost, corr_cost,
+                                     corr_flops, patchify_flops, segsum_cost, update_flops)
+    from bench_port.run import read_metric
+
+    prof = dict(ops=[("void corr_bwd_f1_kernel<bf16>", 0.0, 1500.0),
+                     ("void corr_bwd_map_kernel<bf16>", 1500.0, 2000.0),
+                     ("segsum_kernel<float>", 2000.0, 2100.0),
+                     ("void corr_tile_kernel<bf16>", 2100.0, 2500.0)],
+                kernels=4, busy_s=2.5e-3, window_s=5.0e-3, gaps=[], trace_start_ns=0)
+    call = (18000, 1200, 15, 120, 160, 30, 40, 128, 17000)
+    cfg = dict(P=3, CORR_LEVELS=2, CORR_RADIUS=3, FDIM=128, DIM=384)
+    # 6 edges from the patch rows 0, 1, 3 into the frames 2 and 5
+    corr = corr_shapes([(6, torch.tensor([2, 5, 2, 5, 5, 2]), torch.tensor([0, 1, 3, 0, 1, 3]),
+                         120, 160, 128)])
+    assert corr == [(6, 2, 3, 120, 160, 128)]
+    ctx = dict(frames=30, window_s=10.0, profile=prof, corr_bwd_calls=[call], corr_calls=corr,
+               profile_frames=15, segsum_calls=[(18000, 92, 1200, 4)],
+               edge_rounds=[(5000, 700)] * 2, patchifies=30, passes=3, config=cfg, ht=480,
+               wd=640)
+    get = lambda n: read_metric(ROOT, n, ctx)
+    assert get("frames_per_s") == 3.0
+    assert get("launches_per_frame") == pytest.approx(4 / 15)
+    assert get("corr_roofline") == pytest.approx(
+        100 * bound(*corr_cost(*corr[0]), PEAK_BF16)[0] / 0.4)
+    assert get("corr_bwd_roofline") == pytest.approx(
+        100 * bound(*corr_bwd_cost(*call), PEAK_BF16)[0] / 2.0)
+    assert get("segsum_roofline") == pytest.approx(
+        100 * bound(*segsum_cost(18000, 92, 1200, 4), PEAK_F32)[0] / 0.1)
+    flops = (30 * patchify_flops(480, 640, 128, 384)
+             + 2 * (update_flops(5000, 700, 384, 1152) + corr_flops(5000, 128)))
+    assert get("mfu_pct") == pytest.approx(100 * 3 * flops / 10.0 / PEAK_BF16)
+    assert get("device_idle_pct") == pytest.approx(50.0)
+
+
+def test_the_correlation_backward_count_is_row_8s():
+    """At chip_smoke.py's row 8 (the last unroll step's 18000 edges, 15
+    frames of 80 patches, 120 x 160 maps of 128 channels) the count gives
+    its 0.0612 ms bound, bytes-bound."""
+    from bench_port.roofline import PEAK_BF16, bound, corr_bwd_cost
+
+    ms, by = bound(*corr_bwd_cost(18000, 1200, 15, 120, 160, 30, 40, 128, 18000), PEAK_BF16)
+    assert by == "bytes" and ms == pytest.approx(0.0612, abs=5e-5)
+
+
+def test_a_configuration_without_a_runner_takes_the_stream(tmp_path):
+    """No ``runner`` key: ``runners/stream.py``, found by its file in the
+    checkout, gets the cell and the run's arguments, and the result has
+    its keys in order; a runner that no file gives raises."""
+    import json
+
+    from bench_port.run import run_cell
+
+    root = tiny.make_root(tmp_path)
+    (root / "bench_port/runners/stream.py").write_text(
+        "def run(cell, config, traffic, seed, seconds, trace, device, root, log, started):\n"
+        "    log(f\"stream {cell['name']} {config.get('runner')} {seed} {seconds} {trace}\")\n"
+        "    return dict(ctx=dict(frames=3, window_s=1.5, setup_s=2.0, peak_bytes=0),\n"
+        "                attempted=3, failed=0, correct=True, profile=None, breakdown={},\n"
+        "                checks={'structure': {'value': 0, 'limit': 0}})\n")
+    lines = []
+    result = run_cell(tiny.CELL, 7, 1.0, False, device="cpu", root=root, log=lines.append)
+    assert lines == [f"stream {tiny.CELL} None 7 1.0 False"]
+    assert list(result) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
+    assert result["metrics"]["frames_per_s"]["value"] == 2.0
+    cfg = json.loads((root / "bench_port/configs/tiny.json").read_text())
+    cfg["runner"] = "no_such_runner"
+    (root / "bench_port/configs/tiny.json").write_text(json.dumps(cfg))
+    with pytest.raises(KeyError, match="no_such_runner"):
+        run_cell(tiny.CELL, 7, 1.0, False, device="cpu", root=root, log=lines.append)
 
 
 @pytest.mark.parametrize("m, own, follow, cull, followed", [
@@ -179,14 +269,15 @@ def _top_level_modules(code: str) -> set:
 def test_the_harness_imports_no_jax():
     mods = _top_level_modules("import bench_port.run, bench_port.window, bench_port.judge, "
                               "bench_port.calibrate, bench_port.profile_window, "
-                              "dpvo_tpu_torch.runtime.dpvo")
+                              "bench_port.runners.stream, bench_port.runners.train, "
+                              "dpvo_tpu_torch.runtime.dpvo, dpvo_tpu_torch.train")
     assert not mods & {"jax", "jaxlib", "flax", "dpvo_tpu"}
     assert "dpvo_tpu_torch" in mods
 
 
 def test_the_reference_imports_neither_jax_nor_the_port():
     mods = _top_level_modules("import bench_port.reference.runtime.dpvo, "
-                              "bench_port.reference.precision")
+                              "bench_port.reference.precision, bench_port.reference.train.step")
     assert not mods & {"jax", "jaxlib", "flax", "dpvo_tpu", "dpvo_tpu_torch"}
 
 
@@ -208,3 +299,21 @@ def test_a_cell_traffic_and_metric_added_by_files_alone(tmp_path):
     assert result["metrics"]["frames_seen"]["value"] > 0
     assert list(result)[-1] == "checks"
     assert result["device"]["platform"] == "cpu"
+
+
+def test_the_calibration_takes_the_runner_that_a_run_takes(tmp_path, capsys):
+    """``calibrate.py`` hands a cell to its runner's ``calibrate`` as
+    ``run.py`` hands it to its ``run``: the stream (no ``runner`` key)
+    gives its program's and control's readings of the judge's numbers,
+    the program's within the cell's limits."""
+    from bench_port import calibrate, judge
+
+    root = tiny.make_root(tmp_path)
+    assert calibrate.main(["--workload", tiny.CELL, "--device", "cpu", "--root", str(root),
+                           "--seeds", "5", "--control-seeds", "5"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert {r["side"] for r in rows if "side" in r} == {"program", "control"}
+    summary = rows[-1]
+    limits = json.loads((root / "bench_port/configs/tiny.json").read_text())["limits"]
+    assert set(summary["program"]) == set(judge.NUMBERS)
+    assert all(summary["program"][k] <= limits[k] for k in judge.NUMBERS)

@@ -1,6 +1,7 @@
 """The readers of the port's spans and counters (``program_trace.py``,
 ``metrics/<name>.py``) on fixed span lists, the device-idle attribution
-on a synthetic profile, and ``trace_run.py`` on the tiny cell."""
+on a synthetic profile, and the stream runner's recorder hook on the
+tiny cell."""
 
 from __future__ import annotations
 
@@ -93,14 +94,32 @@ def test_round_means_and_syncs_by_site():
 
 
 def test_trace_run_on_the_tiny_cell(tmp_path):
-    from bench_port.trace_run import PROGRAM_METRICS, traced_cell
+    """The stream runner turns the port's recorder on over a traced run's
+    window and hands its spans and counts to the readers; an untraced run
+    leaves it off and gives them None."""
+    import json
+    import time
+
+    import torch
+
+    from bench_port.run import load_cell, load_module
 
     root = tiny.make_root(tmp_path)
-    out = traced_cell(tiny.CELL, 5, 4.0, False, device="cpu", root=root, log=lambda s: None)
-    assert out["result"]["correct"]
-    assert set(out["program"]) == set(PROGRAM_METRICS) - {"gba_sparsity_ms"}
+    cell, config, traffic = load_cell(json.loads((root / "BENCHMARK.json").read_text()),
+                                      tiny.CELL, root)
+    stream = load_module(root, "runners", "stream")
+    out = {trace: stream.run(cell, config, traffic, 5, 4.0, trace, torch.device("cpu"), root,
+                             lambda s: None, time.perf_counter()) for trace in (True, False)}
+    off = out[False]["ctx"]
+    assert off["program_spans"] is None and off["program_counts"] is None and off["frames"] == 40
+    on = out[True]["ctx"]
+    assert {s.name for s in on["program_spans"]} >= {"frame", "topology", "keyframe",
+                                                    "terminate"}
+    assert out[True]["correct"] and on["frames"] == 40
+    program = {name: read_metric(root, name, on) for name in (
+        "host_topology_ms", "keyframe_ms", "host_wait_ms", "syncs_per_frame", "gba_sparsity_ms",
+        "terminate_ms")}
+    assert program.pop("gba_sparsity_ms") is None   # no loop closure in this cell
+    assert all(v is not None for v in program.values())
     # nothing blocks on the CPU: the sync count is the card's
-    assert out["frames"] == 40 and out["program"]["syncs_per_frame"] == 0
-    off = traced_cell(tiny.CELL, 5, 4.0, False, recorder=False, device="cpu", root=root,
-                      log=lambda s: None)
-    assert off["program"] == {} and off["frames"] == 40
+    assert program["syncs_per_frame"] == 0

@@ -34,21 +34,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from bench_port.harness import Probe
+
 LAYERS = ("patchify", "edge_forward", "window_ba", "global_ba")
-
-
-class Probe:
-    """While ``profiling`` is set, the shapes of the kernels' calls are
-    recorded."""
-
-    def __init__(self):
-        self.profiling = False
-        self.corr = []     # (E, nframes, nrows, H1, W1, C) a correlation
-        self.segsum = []   # (E, K, Md, element size) a segment sum
-
-    def add(self, name, item):
-        if self.profiling:
-            getattr(self, name).append(item)
 
 
 def snapshot(slam) -> dict:
